@@ -1,0 +1,71 @@
+"""Config-driven multi-loss calculator.
+
+Counterpart of ``cardiax/losses/calculator.py`` (``mse_loss``,
+``LossCalculator``): each enabled loss conf names a criterion, the
+pred/target keys it reads and a weight; the calculator returns
+``(total, {name: value, 'total_loss': total})``. Ported criteria:
+``MSELoss`` and ``registration_reconstruction``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from cardiax_torch.losses.registration import registration_reconstruction_loss
+
+
+def _masked_batch_mean(per_sample: torch.Tensor,
+                       mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return per_sample.mean()
+    w = mask.to(per_sample.dtype)
+    return (per_sample * w).sum() / w.sum().clamp_min(1.0)
+
+
+def mse_loss(outputs: Dict[str, Any], targets: Dict[str, Any],
+             conf: Dict[str, Any]) -> torch.Tensor:
+    pred = outputs[conf["prediction"]]
+    tgt = targets[conf["target"]]
+    diff = (pred.float() - tgt.float()) ** 2
+    per_sample = diff.reshape(diff.shape[0], -1).mean(dim=1)
+    return _masked_batch_mean(per_sample,
+                              targets.get(conf.get("mask", "sample_mask")))
+
+
+_CRITERIA: Dict[str, Callable] = {
+    "MSELoss": mse_loss,
+    "registration_reconstruction": registration_reconstruction_loss,
+}
+
+
+def get_loss_function(criterion: str) -> Callable:
+    if criterion not in _CRITERIA:
+        raise NotImplementedError(f"loss criterion {criterion!r} is not ported "
+                                  f"yet; ported: {sorted(_CRITERIA)}")
+    return _CRITERIA[criterion]
+
+
+class LossCalculator:
+    """``LossCalculator(losses_confs)(outputs, targets) -> (total, values)``."""
+
+    def __init__(self, losses_confs: Dict[str, Dict[str, Any]]):
+        self.confs = {name: conf for name, conf in (losses_confs or {}).items()
+                      if conf.get("enable", True)}
+        self._fns = {name: get_loss_function(conf.get("criterion", "MSELoss"))
+                     for name, conf in self.confs.items()}
+
+    def __call__(self, outputs: Dict[str, Any], targets: Dict[str, Any]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        values: Dict[str, torch.Tensor] = {}
+        total = None
+        for name, conf in self.confs.items():
+            val = self._fns[name](outputs, targets, conf)
+            values[name] = val
+            term = float(conf.get("weight", 1.0)) * val
+            total = term if total is None else total + term
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32)
+        values["total_loss"] = total
+        return total, values

@@ -1,0 +1,56 @@
+"""Host-side evaluation metrics (numpy).
+
+Copies of ``cardiax/losses/metrics.py``: ``binary_auc`` and
+``threshold_sweep_f1`` (the LMA metrics of the flagship scheme).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def binary_auc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Rank-based ROC AUC (Mann-Whitney U, ties averaged); 0.5 when either
+    class is absent."""
+    s = np.asarray(scores, np.float64).reshape(-1)
+    y = np.asarray(labels).reshape(-1).astype(bool)
+    n_pos, n_neg = int(y.sum()), int((~y).sum())
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    order = np.argsort(s, kind="mergesort")
+    ranks = np.empty_like(s)
+    ranks[order] = np.arange(1, s.size + 1, dtype=np.float64)
+    sorted_s = s[order]
+    i = 0
+    while i < s.size:
+        j = i
+        while j + 1 < s.size and sorted_s[j + 1] == sorted_s[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = 0.5 * (i + 1 + j + 1)
+        i = j + 1
+    u = ranks[y].sum() - n_pos * (n_pos + 1) / 2.0
+    return float(u / (n_pos * n_neg))
+
+
+def threshold_sweep_f1(scores: np.ndarray, labels: np.ndarray,
+                       n_thresholds: int = 64) -> Tuple[float, float]:
+    """(best F1, threshold achieving it) over thresholds spanning the score
+    range; 0 F1 when no positives exist."""
+    s = np.asarray(scores, np.float64).reshape(-1)
+    y = np.asarray(labels).reshape(-1).astype(bool)
+    if not y.any():
+        return 0.0, float(s.max()) if s.size else 0.0
+    lo, hi = float(s.min()), float(s.max())
+    best_f1, best_t = 0.0, lo
+    for t in np.linspace(lo, hi, n_thresholds, endpoint=False):
+        pred = s > t
+        tp = float(np.sum(pred & y))
+        fp = float(np.sum(pred & ~y))
+        fn = float(np.sum(~pred & y))
+        f1 = 2 * tp / (2 * tp + fp + fn) if tp else 0.0
+        if f1 > best_f1:
+            best_f1, best_t = f1, float(t)
+    return best_f1, best_t

@@ -1,0 +1,56 @@
+"""Registration loss: the LDDMM energy.
+
+Counterpart of ``cardiax/losses/registration.py`` (``lddmm_energy``,
+``registration_reconstruction_loss``); the Sobel gradient-magnitude loss is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _masked_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """Mean over everything; samples with mask 0 (batch padding)
+    contribute nothing. Batch is axis 0."""
+    if sample_mask is None:
+        return x.mean()
+    per_sample = x.reshape(x.shape[0], -1).mean(dim=1)
+    w = sample_mask.to(per_sample.dtype)
+    return (per_sample * w).sum() / w.sum().clamp_min(1.0)
+
+
+def lddmm_energy(target: torch.Tensor, deformed_source: torch.Tensor,
+                 velocity: torch.Tensor, momentum: torch.Tensor,
+                 sigma: float = 0.03, regularization_weight: float = 0.1,
+                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """0.5 * MSE(target, deformed_source) / sigma^2
+    + reg_weight * sum(velocity * momentum) / target.numel(), with the
+    numel of the REAL (unpadded) batch when a mask is given."""
+    recon = _masked_mean((target - deformed_source) ** 2, sample_mask)
+    if sample_mask is not None:
+        vm = velocity * momentum
+        per_sample = vm.reshape(vm.shape[0], -1).sum(dim=1)
+        w = sample_mask.to(per_sample.dtype)
+        reg = (per_sample * w).sum()
+        numel = target[0].numel() * w.sum().clamp_min(1.0)
+    else:
+        reg = (velocity * momentum).sum()
+        numel = target.numel()
+    return 0.5 * recon / (sigma ** 2) + regularization_weight * reg / numel
+
+
+def registration_reconstruction_loss(outputs: dict, targets: dict,
+                                     conf: dict) -> torch.Tensor:
+    return lddmm_energy(
+        target=targets[conf.get("target", "registration_target")],
+        deformed_source=outputs["deformed_source"],
+        velocity=outputs["velocity"],
+        momentum=outputs["momentum"],
+        sigma=float(conf.get("sigma", 0.03)),
+        regularization_weight=float(conf.get("regularization_weight", 0.1)),
+        sample_mask=targets.get(conf.get("mask", "sample_mask")),
+    )
