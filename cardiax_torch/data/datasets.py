@@ -1,7 +1,8 @@
 """The joint scheme's dataset view over slice dicts (numpy only).
 
-Copy of ``cardiax/data/datasets.py:JointDataset`` and of
-``cardiax/data/frames.py:align_n_frames_to``. Items are
+Copy of ``cardiax/data/datasets.py`` (``JointDataset``, ``build_datasets``)
+and of ``cardiax/data/frames.py:align_n_frames_to``; the other dataset types
+come with their schemes (ROADMAP A8) and raise. Items are
 
     cine_myo_mask (1, T, H, W) f32, strain_matrix (1, 126, Ts) f32,
     TOS (126,) f32, plus the slice's non-array metadata,
@@ -12,7 +13,7 @@ with T and Ts cropped or edge-padded to the configured frame counts.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -78,3 +79,26 @@ class JointDataset:
             else:
                 datum[k] = v
         return datum
+
+
+def build_datasets(datasets_config: Dict[str, Dict[str, Any]],
+                   data_splits: Dict[str, Dict[str, Any]],
+                   full_config: Dict[str, Any] | None = None
+                   ) -> Dict[str, JointDataset]:
+    """One dataset per entry of ``datasets_config``, over the slice dicts of
+    the split(s) it names (``data_split`` may list several; they
+    concatenate)."""
+    datasets: Dict[str, JointDataset] = {}
+    for name, cfg in datasets_config.items():
+        if cfg["type"] != "JointDataset":
+            raise NotImplementedError(
+                f"dataset type {cfg['type']!r} is not ported yet (ROADMAP "
+                f"A8, with its scheme); ported: ['JointDataset']")
+        split_names: Sequence[str] = cfg.get("data_split", [name])
+        if isinstance(split_names, str):
+            split_names = [split_names]
+        data: List[Dict[str, Any]] = []
+        for sn in split_names:
+            data.extend(data_splits[sn]["data"])
+        datasets[name] = JointDataset(data, cfg)
+    return datasets

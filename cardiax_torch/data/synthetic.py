@@ -1,8 +1,13 @@
 """Synthetic cine-CMR slices in the reference npy data contract (numpy only).
 
-Copy of ``cardiax/data/synthetic.py`` (``make_slice``, ``make_dataset``): per 2D slice ``cine_lv_myo_masks (H,W,T)`` binary myocardium
-masks of a contracting annulus whose sectors activate at their TOS frame,
-``strain_matrix (126,T)``, ``TOS (126,)`` and ``subject_id``.
+Copy of ``cardiax/data/synthetic.py`` (``make_slice``, ``make_dataset``,
+``save_npy`` and the slice CLI): per 2D slice ``cine_lv_myo_masks (H,W,T)``
+binary myocardium masks of a contracting annulus whose sectors activate at
+their TOS frame, ``strain_matrix (126,T)``, ``TOS (126,)`` and
+``subject_id``. Write an npy with
+
+    python -m cardiax_torch.data.synthetic --out data/slices.npy \
+        --subjects 10 --slices 3 --size 128 --frames 20
 """
 
 from __future__ import annotations
@@ -71,3 +76,32 @@ def make_dataset(n_subjects: int = 4, slices_per_subject: int = 2, h: int = 64, 
         for _ in range(slices_per_subject):
             data.append(make_slice(rng, sid, h, w, n_frames, n_sectors))
     return data
+
+
+def save_npy(path: str, data: List[Dict[str, Any]]) -> None:
+    np.save(path, np.array(data, dtype=object), allow_pickle=True)
+
+
+def main(argv=None) -> None:
+    """CLI: write a synthetic npy of slices (the displacement-field and
+    pair variants of the JAX CLI come with their schemes, ROADMAP A8)."""
+    import argparse
+    import os
+    p = argparse.ArgumentParser(description="synthetic cine-CMR npy generator")
+    p.add_argument("--out", default="data/slices.npy")
+    p.add_argument("--subjects", type=int, default=10)
+    p.add_argument("--slices", type=int, default=3)
+    p.add_argument("--size", type=int, default=64)
+    p.add_argument("--frames", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    data = make_dataset(n_subjects=args.subjects, slices_per_subject=args.slices,
+                        h=args.size, w=args.size, n_frames=args.frames,
+                        seed=args.seed)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    save_npy(args.out, data)
+    print(f"wrote {len(data)} slices to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

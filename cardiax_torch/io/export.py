@@ -1,0 +1,65 @@
+"""Prediction and model export.
+
+Counterpart of ``cardiax/io/export.py``:
+
+* ``save_predictions``: npy list-of-dicts (``val_pred.npy``/``test_pred.npy``),
+  the same files the JAX package writes;
+* ``save_trained_models``: ``config.json`` + ``performance.json`` + one
+  ``model-{name}.pt`` PyTorch state dict per model (the JAX package writes
+  flax msgpack params; reading those is ROADMAP A5).
+
+The compiled export methods (``jit``, ``onnx``, ``model_zip_state_dict``)
+are not ported (ROADMAP A9) and are refused before training starts.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+KNOWN_SAVE_METHODS = ("state_dict", "jit", "onnx", "model_zip_state_dict",
+                      "model_zip_state_dict_pt")
+
+
+def validate_save_method(saving_conf: Dict[str, Any] | None) -> None:
+    """Fail fast on an unknown ``saving.save_model_method``/``method``, and
+    on the compiled methods the port has not ported yet."""
+    method = (saving_conf or {}).get("save_model_method") \
+        or (saving_conf or {}).get("method")
+    if method and method not in KNOWN_SAVE_METHODS:
+        raise ValueError(
+            f"saving.save_model_method={method!r} is not one of "
+            f"{KNOWN_SAVE_METHODS} — aborting before training starts")
+    if method and method != "state_dict":
+        raise NotImplementedError(
+            f"saving.save_model_method={method!r}: compiled model export is "
+            f"not ported yet (ROADMAP A9); use 'state_dict'")
+
+
+def save_predictions(preds: List[Dict[str, Any]], path: str | Path) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, np.array(preds, dtype=object), allow_pickle=True)
+
+
+def save_trained_models(saving_dir: str | Path, models: Dict[str, Any],
+                        full_config: Dict[str, Any],
+                        performance: Dict[str, Any] | None = None) -> None:
+    """Persist the config, the performance dict and each bundle's module
+    state dict (as CPU tensors) as ``model-{name}.pt``."""
+    saving_dir = Path(saving_dir)
+    saving_dir.mkdir(parents=True, exist_ok=True)
+    with open(saving_dir / "config.json", "w") as f:
+        json.dump(full_config, f, indent=4, default=str)
+    if performance is not None:
+        with open(saving_dir / "performance.json", "w") as f:
+            json.dump({k: float(v) if hasattr(v, "__float__") else v
+                       for k, v in performance.items()}, f, indent=4)
+    for name, bundle in models.items():
+        state = {k: v.detach().cpu()
+                 for k, v in bundle.module.state_dict().items()}
+        torch.save(state, saving_dir / f"model-{name}.pt")

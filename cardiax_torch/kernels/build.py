@@ -91,17 +91,12 @@ def check(err: int, what: str) -> None:
 
 def check_inputs(what: str, **tensors) -> None:
     """What every kernel wrapper refuses, on any device: a dtype other than
-    float32, a non-contiguous layout, and (forward-only kernels) an input
-    that requires grad while grad mode is on."""
+    float32 and a non-contiguous layout."""
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tensors.values()):
-        raise RuntimeError(f"{what} has no backward yet; call it under "
-                           f"torch.no_grad() or torch.inference_mode()")
 
 
 def require_cuda(what: str, **tensors) -> None:

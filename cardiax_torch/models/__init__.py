@@ -12,17 +12,62 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import torch
 from torch import nn
 
 from cardiax_torch.models.joint_net import JointRegisterStrainMatNet
+from cardiax_torch.models.layers import Conv, Dense, GroupNorm, lecun_normal_
 from cardiax_torch.models.lma_net import NetStrainMat2LMA
+from cardiax_torch.models.strain_net import (ResNet3DStrainHead,
+                                             SpatioTemporalBlock)
+from cardiax_torch.models.unet import MomentumUNet
 
 
 @dataclasses.dataclass
 class ModelBundle:
-    """A network module plus the config that built it."""
+    """A network module plus the config that built it. ``initialized`` is
+    False until its weights are drawn (``init_weights``) or loaded; the
+    engine initialises such bundles from the training seed."""
     module: nn.Module
     config: Dict[str, Any]
+    initialized: bool = False
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The flax initialisers, leaf by leaf, drawn from ``generator``:
+
+    * Conv and Dense kernels: truncated ``lecun_normal`` (fan_in = input
+      channels x taps, or input features); biases zero;
+    * GroupNorm: unit scale, zero bias;
+    * the strain head's temporal mix: ``mix_kernel`` ``lecun_normal`` over
+      its flax shape (3F, F), so fan_in = 3F (``strain_net.py:77-79``);
+      ``mix_bias`` zero;
+    * the momentum head: zero kernel and bias, so shooting starts from the
+      identity (``unet.py:228-232``);
+    * the strain head's frame projection: ``normal(0.02)`` (``:163``).
+
+    The streams differ from JAX's, so only the distributions match."""
+    zero = {id(m.head) for m in model.modules() if isinstance(m, MomentumUNet)}
+    small = {id(m.frames) for m in model.modules()
+             if isinstance(m, ResNet3DStrainHead) and m.frames is not None}
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (Conv, Dense)):
+                mod.bias.zero_()
+                if id(mod) in zero:
+                    mod.weight.zero_()
+                elif id(mod) in small:
+                    mod.weight.normal_(0.0, 0.02, generator=generator)
+                else:
+                    lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
+            elif isinstance(mod, GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, SpatioTemporalBlock):
+                lecun_normal_(mod.mix_weight, mod.mix_weight.shape[0],
+                              generator)
+                mod.mix_bias.zero_()
+    return model
 
 
 def _build_lma(cfg: Dict[str, Any], n_pairs: Optional[int]) -> ModelBundle:

@@ -12,7 +12,8 @@ forward_volume`` with the ``ResNet3D`` strain head:
     }
 
 The P frame pairs fold into the batch for the momentum UNet and the
-shooting (kernel K2 per Euler step), the final image warp is kernel K1, the
+shooting (kernels K2/K3 per Euler step), the final image warp is kernel K1
+(backward K4, d/d displacement only: the source frames are data), the
 displacement regroups into a motion video for the strain head (on the
 integration grid when ``strain_downsample`` allows), and the strain matrix
 is smoothed by rank-k subspace iteration. ``n_pairs`` (P) must be given: it
@@ -82,7 +83,8 @@ class JointRegisterStrainMatNet(nn.Module):
             shoot_downsample=self.shoot_downsample, return_low=True)
         deformed = deform_image(src.contiguous(), u_inv,
                                 warp_radius=None if self.exact_warp
-                                else self.final_warp_radius)
+                                else self.final_warp_radius,
+                                img_const=True)
 
         disp_video = u_inv.reshape(b, p, 2, h, w)
         ds = int(self.strain_downsample)

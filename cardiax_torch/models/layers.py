@@ -107,16 +107,14 @@ class Dense(nn.Module):
         return y + self.bias.to(y.dtype)
 
 
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator``: normal with variance 1/fan_in for
-    every matrix or kernel, zero biases, unit norm scales."""
-    norm_scales = {id(m.weight) for m in model.modules()
-                   if isinstance(m, GroupNorm)}
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.dim() >= 2:
-                std = 1.0 / math.sqrt(p[0].numel())
-                p.copy_(torch.randn(p.shape, generator=generator) * std)
-            else:
-                p.fill_(1.0 if id(p) in norm_scales else 0.0)
-    return model
+# flax variance_scaling(1, "fan_in", "truncated_normal"): a normal cut at
+# +-2 sigma, rescaled so the cut distribution has variance 1/fan_in
+_TRUNC_STD = .87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)

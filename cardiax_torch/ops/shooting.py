@@ -12,7 +12,8 @@ integrated with ``n_steps`` Euler steps. Each step's pointwise core
 kernel K2 (``epdiff_kernels.epdiff_step``) at band radius
 min(2, warp_radius); the solve v = K m stays a float32 DFT matmul.
 ``warp_radius=None`` takes the exact composite path (``ad_star`` and the
-unclamped gather warp). The final image warp ``deform_image`` is kernel K1.
+unclamped gather warp). The final image warp ``deform_image`` is kernel K1,
+its backward kernel K4; each step's backward is kernel K3.
 """
 
 from __future__ import annotations
@@ -96,12 +97,18 @@ def expmap_shooting(m0: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
 
 
 def deform_image(img: torch.Tensor, u_inv: torch.Tensor,
-                 warp_radius: Optional[int] = 12) -> torch.Tensor:
+                 warp_radius: Optional[int] = 12,
+                 img_const: bool = False) -> torch.Tensor:
     """deformed(x) = img(x + u_inv(x)); img (B, C, H, W), u_inv (B, 2, H, W).
 
     ``warp_radius`` bounds the final deformation: displacements clamp at
-    radius - 1 px (kernel K1). ``None`` takes the exact unclamped gather."""
+    radius - 1 px (kernels K1 forward, K4 backward). ``None`` takes the
+    exact unclamped gather. ``img_const=True`` declares that no gradient
+    w.r.t. ``img`` is needed (warping source data)."""
     if warp_radius is not None:
-        return bilinear_warp_banded_multi(img, u_inv, radius=warp_radius)
+        return bilinear_warp_banded_multi(img, u_inv, radius=warp_radius,
+                                          img_const=img_const)
+    if img_const:
+        img = img.detach()
     return torch.stack([bilinear_warp(img[:, i], u_inv)
                         for i in range(img.shape[1])], dim=1)

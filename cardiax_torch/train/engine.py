@@ -1,15 +1,30 @@
-"""Trainer engine, evaluation only for now.
+"""Trainer engine: one train step per scheme, the shared epoch machinery.
 
 Counterpart of ``cardiax/train/engine.py``: ``Scheme`` (per-batch forward
-contract and the TOS metrics), and ``TrainerEngine.setup`` / ``eval_step``
-(``_make_steps.eval_step``: values and preds of one batch, including
-``max_abs_displacement``) / ``test`` (padded batches with ``sample_mask``,
-per-sample predictions, mean losses). Training, optimizers and the
-eval/prefetch pipelining come in later slices.
+contract and the TOS metrics) and ``TrainerEngine``:
+
+* ``setup``: modules on the engine's device, weights drawn from the training
+  seed where a bundle has none (``models.init_weights``), one optimizer and
+  per-step schedule per configured model (``train.optim``); a model without
+  an optimizer config is frozen;
+* ``train_step``: forward, loss, backward, then every optimizer and its
+  schedule steps (no gradient clipping, as in JAX);
+* ``train``: the synchronous epoch loop of the JAX engine (epoch-indexed
+  shuffle, padded final batches with ``sample_mask``, validation every
+  ``others.valid_period`` epochs, early stopping, best weights restored,
+  the non-finite spot check and the banded-warp saturation warning);
+* ``eval_step`` / ``test``: values and per-sample predictions.
+
+JAX's device-resident cache, fused epochs and epoch pipelining give the same
+values as its synchronous loop; here ``auto``/false selects the synchronous
+loop and ``true`` raises (ROADMAP A10). Checkpoints, the profiler trace and
+periodic figures raise (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -17,7 +32,13 @@ import torch
 
 from cardiax_torch.data.loader import Batcher
 from cardiax_torch.device import resolve_device
+from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.losses.calculator import LossCalculator
+from cardiax_torch.models import init_weights
+from cardiax_torch.train.optim import build_optimizer
+
+_FALSE = ("false", "0", "off", "none", "no")
+_TRUE = ("true", "1", "yes", "on")
 
 
 class Scheme:
@@ -56,6 +77,32 @@ class Scheme:
         return perf
 
 
+def _sync_loop_only(cfg: Dict[str, Any]) -> None:
+    """The dispatch options of the JAX engine: ``auto`` and false mean the
+    synchronous loop (JAX pins them as giving its values), true raises."""
+    for key in ("device_data_cache", "epoch_fuse", "epoch_pipeline"):
+        raw = cfg.get(key, "auto")
+        mode = "auto" if raw is None else str(raw).lower()
+        if mode in _TRUE:
+            raise NotImplementedError(
+                f"training.{key}={raw!r}: not ported yet (ROADMAP A10); "
+                f"'auto' and false run the synchronous loop")
+        if mode != "auto" and mode not in _FALSE:
+            raise ValueError(f"training.{key}={raw!r} is not a recognized "
+                             f"value; use true/false/auto")
+
+
+def _bundles(models: Dict[str, Any]) -> Dict[str, Any]:
+    """Bundles from either ``{name: bundle}`` or ``train()``'s exp_dict."""
+    out = {}
+    for k, v in models.items():
+        if k.endswith("_model"):
+            out[k[: -len("_model")]] = v
+        elif hasattr(v, "module"):
+            out[k] = v
+    return out
+
+
 class TrainerEngine:
     def __init__(self, scheme: Scheme, trainer_config: Dict[str, Any],
                  full_config: Dict[str, Any], device=None):
@@ -64,19 +111,55 @@ class TrainerEngine:
         self.full_config = full_config or {}
         self.device = resolve_device(device)
         self.loss_calc = LossCalculator(self.full_config.get("losses", {}))
+        self.metric_prefix = self.trainer_config.get("metric_prefix", "")
         self.modules: Dict[str, torch.nn.Module] = {}
+        self.optimizers: Dict[str, Tuple[torch.optim.Optimizer, Any]] = {}
+        self._warned_disp_band = False
+        # the banded warp clamps |disp| at final_warp_radius - 1 px; warn
+        # when training displacements approach it
+        radii = [int(mc.get("final_warp_radius", 12))
+                 for mc in self.full_config.get("networks", {}).values()
+                 if isinstance(mc, dict)]
+        self._disp_band = (max(radii) if radii else 12) - 1
 
+    def _check_displacement_band(self, max_disp: float) -> None:
+        if not self._warned_disp_band and max_disp > 0.9 * self._disp_band:
+            self._warned_disp_band = True
+            warnings.warn(
+                f"max |displacement| {max_disp:.2f} px is within 10% of the "
+                f"banded-warp clamp ({self._disp_band} px); raise "
+                f"networks.*.final_warp_radius to avoid saturation",
+                RuntimeWarning)
+
+    # ---- setup ------------------------------------------------------------ #
     def setup(self, models: Dict[str, Any],
-              state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
-              ) -> None:
-        """Take the scheme's ``ModelBundle``s, load ``state_dicts`` into
-        them when given, move them to the engine's device in eval mode."""
+              state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+              steps_per_epoch: int = 1, seed: Optional[int] = None) -> None:
+        """Take the scheme's ``ModelBundle``s: load ``state_dicts`` into them
+        when given, else draw the weights of every bundle that has none from
+        ``seed`` (default ``training.seed``); move them to the engine's
+        device and build each configured model's optimizer."""
+        if seed is None:
+            seed = int(self.trainer_config.get("seed", 2434))
+        gen = torch.Generator().manual_seed(int(seed))
         self.modules = {}
         for name, bundle in models.items():
             module = bundle.module
             if state_dicts is not None:
                 module.load_state_dict(state_dicts[name])
-            self.modules[name] = module.to(self.device).eval()
+                bundle.initialized = True
+            elif not bundle.initialized:
+                init_weights(module, gen)
+                bundle.initialized = True
+            self.modules[name] = module.to(self.device)
+        opt_confs = self.trainer_config.get("optimizers", {}) or {}
+        self.optimizers = {}
+        for name, module in self.modules.items():
+            conf = opt_confs.get(name)
+            module.requires_grad_(conf is not None)    # no optimizer: frozen
+            if conf is not None:
+                self.optimizers[name] = build_optimizer(
+                    module.parameters(), conf, steps_per_epoch)
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The numeric numpy fields of a host batch as device tensors."""
@@ -84,20 +167,199 @@ class TrainerEngine:
                 for k, v in batch.items()
                 if isinstance(v, np.ndarray) and v.dtype.kind in "fiub"}
 
+    # ---- steps ------------------------------------------------------------ #
+    def _loss(self, arrays: Dict[str, torch.Tensor]):
+        preds, targets = self.scheme.forward(self.modules, arrays)
+        total, values = self.loss_calc(preds, targets)
+        if "displacement" in preds:
+            # band-saturation guard of the banded warp: max |u_inv|
+            values["max_abs_displacement"] = preds["displacement"].abs().max()
+        return total, values, preds
+
+    def backward(self, arrays: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Forward, loss and backward of one batch: each trained parameter's
+        ``.grad`` holds this batch's gradient. Returns the loss values."""
+        for module in self.modules.values():
+            module.train()
+            module.zero_grad(set_to_none=True)
+        total, values, _ = self._loss(arrays)
+        total.backward()
+        return {k: v.detach() for k, v in values.items()}
+
+    def train_step(self, arrays: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimisation step on one batch; returns its loss values
+        (before the update), as the JAX train step does."""
+        values = self.backward(arrays)
+        for opt, schedule in self.optimizers.values():
+            opt.step()
+            schedule.step()
+        return values
+
     def eval_step(self, arrays: Dict[str, torch.Tensor]
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """(values, preds) of one batch, as the JAX eval step returns them."""
+        for module in self.modules.values():
+            module.eval()
         with torch.inference_mode():
-            preds, targets = self.scheme.forward(self.modules, arrays)
-            _, values = self.loss_calc(preds, targets)
-            if "displacement" in preds:
-                # band-saturation guard of the banded warp: max |u_inv|
-                values["max_abs_displacement"] = preds["displacement"].abs().max()
+            _, values, preds = self._loss(arrays)
         return values, preds
 
+    # ---- training loop ------------------------------------------------------ #
+    def _snapshot(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {name: {k: v.detach().clone()
+                       for k, v in module.state_dict().items()}
+                for name, module in self.modules.items()}
+
+    def train(self, models: Dict[str, Any], datasets: Dict[str, Any],
+              trainer_config: Dict[str, Any] | None = None,
+              full_config: Dict[str, Any] | None = None,
+              use_tensorboard: bool = False, use_wandb: bool = False,
+              tracker: Optional[MetricsTracker] = None,
+              ) -> Tuple[Dict[str, Any], MetricsTracker]:
+        cfg = trainer_config or self.trainer_config
+        full = full_config or self.full_config
+        others = full.get("others", {}) or {}
+        saving = full.get("saving", {}) or {}
+        epochs = int(cfg.get("epochs", 1))
+        batch_size = int(cfg.get("batch_size", 10))
+        seed = int(cfg.get("seed", 2434))
+        tolerance = int(cfg.get("epochs_without_improvement_tolerance", 50))
+        test_as_val = bool(cfg.get("test_as_val", False))
+        early_stop_metric = cfg.get("early_stop_metric")
+        valid_period = max(1, int(others.get("valid_period", 1)))
+        spot_every = int(cfg.get("metric_spot_check_steps", 50))
+        log_wall = bool(cfg.get("log_epoch_walltime", False))
+        _sync_loop_only(cfg)
+        if saving.get("save_checkpoint") and saving.get("saving_dir"):
+            raise NotImplementedError(
+                "saving.save_checkpoint: checkpoints and resume are not "
+                "ported yet (ROADMAP A9); set it false")
+        if others.get("profile_dir"):
+            raise NotImplementedError(
+                "others.profile_dir: the profiler trace and its table "
+                "(cardiax/io/profiling.py) are not ported yet (ROADMAP A9)")
+        if cfg.get("host_profile", False):
+            raise NotImplementedError(
+                "training.host_profile: host-phase attribution of the fused "
+                "epoch loop is not ported yet (ROADMAP A10)")
+        if others.get("wandb_visualize_interval", 0) and saving.get("saving_dir"):
+            raise NotImplementedError(
+                "others.wandb_visualize_interval: periodic figures (the plot "
+                "module) are not ported yet (ROADMAP A9); set it to 0")
+
+        train_ds = datasets["train"]
+        if len(train_ds) == 0:
+            raise ValueError("train dataset is empty — check split patterns "
+                             "against the data's subject ids")
+        val_name = "test" if test_as_val and "test" in datasets else "val"
+        val_ds = datasets.get(val_name)
+        train_loader = self.scheme.make_loader(train_ds, batch_size,
+                                               shuffle=True, seed=seed)
+        val_loader = self.scheme.make_loader(val_ds, batch_size, shuffle=False) \
+            if val_ds is not None and len(val_ds) > 0 else None
+        if tracker is None:
+            tracker = MetricsTracker(
+                use_wandb=use_wandb, use_tensorboard=use_tensorboard,
+                log_dir=saving.get("saving_dir"),
+                run_name=full.get("info", {}).get("experiment_name", "cardiax"))
+        self.setup(models, steps_per_epoch=len(train_loader), seed=seed)
+
+        best_val = float("inf")
+        best_state = self._snapshot()
+        best_epoch = -1
+        best_epoch_metrics: Dict[str, float] = {}
+        epochs_without_improvement = 0
+        history: List[Dict[str, float]] = []
+        prefix = self.metric_prefix
+        global_step = 0
+        t_start = time.perf_counter()
+        for epoch in range(epochs):
+            t_epoch = time.perf_counter()
+            # epoch-indexed shuffle (loader.epoch_permutation)
+            train_loader.set_epoch(epoch)
+            step_values: List[Dict[str, torch.Tensor]] = []
+            for batch in train_loader:
+                values = self.train_step(self.to_device(batch))
+                step_values.append(values)
+                global_step += 1
+                if spot_every and global_step % spot_every == 0:
+                    fv = float(values["total_loss"])
+                    if not np.isfinite(fv):
+                        raise FloatingPointError(
+                            f"non-finite total_loss {fv} at epoch {epoch} "
+                            f"step {global_step} (spot check)")
+                    if "max_abs_displacement" in values:
+                        self._check_displacement_band(
+                            float(values["max_abs_displacement"]))
+            epoch_metrics: Dict[str, float] = {}
+            for k, v in _stack(step_values).items():
+                if k == "max_abs_displacement":     # epoch max, not mean
+                    for fv in v:
+                        self._check_displacement_band(float(fv))
+                    epoch_metrics[f"{prefix}train/{k}"] = float(v.max())
+                else:
+                    epoch_metrics[f"{prefix}train/{k}"] = float(v.mean())
+
+            epoch_total_val = None
+            if val_loader is not None and (epoch % valid_period == 0
+                                           or epoch == epochs - 1):
+                val_values = [self.eval_step(self.to_device(b))[0]
+                              for b in val_loader]
+                for k, v in _stack(val_values).items():
+                    epoch_metrics[f"{prefix}val/{k}"] = float(v.mean())
+                epoch_total_val = epoch_metrics.get(f"{prefix}val/total_loss")
+            if log_wall:
+                epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
+                    time.perf_counter() - t_epoch
+            tracker.log(epoch_metrics, step=epoch)
+            history.append(dict(epoch_metrics))
+
+            # early stopping on total val loss, or on early_stop_metric
+            if early_stop_metric is not None:
+                key = early_stop_metric if early_stop_metric.startswith(prefix) \
+                    else f"{prefix}{early_stop_metric}"
+                monitor = epoch_metrics.get(key)
+            elif val_loader is not None:
+                monitor = epoch_total_val   # None on valid_period-skipped epochs
+            else:
+                monitor = epoch_metrics.get(f"{prefix}train/total_loss",
+                                            float("inf"))
+            if monitor is not None:
+                if monitor < best_val:
+                    best_val = monitor
+                    best_state = self._snapshot()
+                    best_epoch = epoch
+                    best_epoch_metrics = dict(epoch_metrics)
+                    epochs_without_improvement = 0
+                else:
+                    epochs_without_improvement += 1
+                    if epochs_without_improvement > tolerance:
+                        break
+
+        if best_epoch_metrics:
+            tracker.log_best(best_epoch_metrics, step=best_epoch)
+        elapsed = time.perf_counter() - t_start
+        for name, module in self.modules.items():
+            module.load_state_dict(best_state[name])
+
+        exp_dict: Dict[str, Any] = {f"{name}_model": bundle
+                                    for name, bundle in models.items()}
+        exp_dict["best_epoch"] = best_epoch
+        exp_dict["best_val_loss"] = best_val
+        exp_dict["train_seconds"] = elapsed
+        exp_dict["train_loss_dict"] = {
+            k: [h[k] for h in history if k in h]
+            for k in (history[-1] if history else {})
+            if k.endswith("total_loss") or "/" in k}
+        return exp_dict, tracker
+
+    # ---- inference ----------------------------------------------------------- #
     def test(self, models: Dict[str, Any], datasets: Dict[str, Any],
              trainer_config: Dict[str, Any] | None = None,
              target_dataset: str = "test",
+             tracker: Optional[MetricsTracker] = None,
              ) -> Tuple[List[Dict[str, Any]], Dict[str, float]]:
         """Evaluate ``datasets[target_dataset]`` in padded batches: per-sample
         predictions (``<key>_pred``, padding dropped), the scheme's
@@ -105,7 +367,7 @@ class TrainerEngine:
         cfg = trainer_config or self.trainer_config
         batch_size = int(cfg.get("batch_size", 10))
         if not self.modules:
-            self.setup(models)
+            self.setup(_bundles(models))
         loader = self.scheme.make_loader(datasets[target_dataset], batch_size,
                                          shuffle=False)
         preds: List[Dict[str, Any]] = []
@@ -125,8 +387,18 @@ class TrainerEngine:
                         sample[f"{k}_pred"] = v[i]
                 preds.append(sample)
         perf = self.scheme.performance(preds, target_dataset)
-        nb = max(1, len(step_values))
-        for k in (step_values[0] if step_values else {}):
-            total = sum(float(v[k]) for v in step_values)
-            perf[f"final-{target_dataset}/loss_{k}"] = total / nb
+        for k, v in _stack(step_values).items():
+            perf[f"final-{target_dataset}/loss_{k}"] = float(v.mean())
+        if tracker is not None:
+            tracker.log(perf)
         return preds, perf
+
+
+def _stack(step_values: List[Dict[str, torch.Tensor]]
+           ) -> Dict[str, np.ndarray]:
+    """Per-step scalar values -> one float64 host array per key (one
+    device-to-host copy per key)."""
+    if not step_values:
+        return {}
+    return {k: torch.stack([v[k].float() for v in step_values])
+            .cpu().double().numpy() for k in step_values[0]}

@@ -2,10 +2,13 @@
 
 * ``cardiax_torch`` and ``chip_smoke.py`` import nothing of JAX or of the
   JAX package (``cardiax_torch`` itself is allowed);
-* without CUDA, ``resolve_device(None)`` raises instead of falling back;
-* each kernel wrapper refuses to launch without a CUDA tensor, refuses
-  inputs that require grad (no backward yet), and a missing ``nvcc`` makes
-  the build raise.
+* without CUDA, ``resolve_device(None)`` and ``cardiax_torch.main.main``
+  raise instead of falling back;
+* each kernel wrapper refuses to launch without a CUDA tensor; gradients
+  flow through the wrappers on the CPU, except into a warped field that is
+  not declared constant (its backward, ROADMAP B5, is not ported); the
+  EPDiff backward refuses planes under 4 px; a missing ``nvcc`` makes the
+  build raise.
 """
 
 import ast
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from cardiax_torch import device as tdevice
+from cardiax_torch import main as port_main
 from cardiax_torch.kernels import build
 from cardiax_torch.ops import epdiff_kernels, warp_kernels
 
@@ -58,11 +62,23 @@ def _k2_inputs():
     return tuple(torch.zeros(2, 2, 8, 8) for _ in range(3))
 
 
+def test_main_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_main.main(["--config-file", str(ROOT / "configs" / "joint.json")])
+
+
 def test_kernel_launch_paths_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="not a CUDA tensor"):
         warp_kernels._mc_warp_cuda(*_k1_inputs(), 12)
     with pytest.raises(RuntimeError, match="not a CUDA tensor"):
         epdiff_kernels._epdiff_step_cuda(*_k2_inputs(), 0.2, 2)
+    img, disp = _k1_inputs()
+    with pytest.raises(RuntimeError, match="not a CUDA tensor"):
+        warp_kernels._mc_warp_disp_bwd_cuda(img, disp, img, 12)
+    with pytest.raises(RuntimeError, match="not a CUDA tensor"):
+        epdiff_kernels._epdiff_step_bwd_cuda(*_k2_inputs(), *_k2_inputs()[:2],
+                                             0.2, 2)
     # a device that is neither the CPU nor CUDA does not reach a plain version
     meta = torch.zeros(2, 1, 8, 8, device="meta")
     with pytest.raises(RuntimeError, match="not a CUDA tensor"):
@@ -71,14 +87,37 @@ def test_kernel_launch_paths_refuse_cpu_tensors():
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """The one input whose gradient the port cannot give: a warped field
+    not declared constant (the fused backward, ROADMAP B5)."""
     img, disp = _k1_inputs()
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        warp_kernels.bilinear_warp_banded_multi(img, disp.requires_grad_(), 12)
-    v, m, u = _k2_inputs()
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        epdiff_kernels.epdiff_step(v.requires_grad_(), m, u, 0.2, 2)
+    img.requires_grad_()
+    with pytest.raises(NotImplementedError, match="B5"):
+        warp_kernels.bilinear_warp_banded_multi(img, disp, 12)
     with torch.no_grad():      # without grad mode the same call runs
-        epdiff_kernels.epdiff_step(v, m, u, 0.2, 2)
+        warp_kernels.bilinear_warp_banded_multi(img, disp, 12)
+    warp_kernels.bilinear_warp_banded_multi(img, disp, 12, img_const=True)
+
+
+def test_gradients_flow_through_the_wrappers_on_cpu():
+    gen = torch.Generator().manual_seed(0)
+    v, m, u = (torch.randn(2, 2, 8, 8, generator=gen).requires_grad_()
+               for _ in range(3))
+    m1, u1 = epdiff_kernels.epdiff_step(v, m, u, 0.2, 2)
+    img = torch.randn(2, 1, 8, 8, generator=gen)
+    out = warp_kernels.bilinear_warp_banded_multi(img, 3.0 * u1, 12,
+                                                  img_const=True)
+    grads = torch.autograd.grad(out.sum() + m1.sum(), (v, m, u))
+    assert all(g is not None and g.abs().sum() > 0 for g in grads)
+
+
+def test_epdiff_backward_refuses_planes_under_4():
+    v, m, u = (torch.zeros(1, 2, 3, 8) for _ in range(3))
+    with pytest.raises(ValueError, match="H, W >= 4"):
+        epdiff_kernels.epdiff_step_bwd(v, m, u, m, u, 0.2, 2)
+    v, m, u = (torch.zeros(1, 2, 8, 3).requires_grad_() for _ in range(3))
+    m1, u1 = epdiff_kernels.epdiff_step(v, m, u, 0.2, 2)   # forward runs
+    with pytest.raises(ValueError, match="H, W >= 4"):
+        u1.sum().backward()
 
 
 def test_kernel_wrappers_refuse_bad_dtype_and_layout():

@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+K1/K2 are the forward warp and EPDiff step, K4/K3 their backward kernels;
+one test per autograd Function checks that a backward through autograd on
+the card launches its kernel.
+
 Marked ``gpu``: without a CUDA device each test skips (decided inside the
 fixture, not at import). On a machine with an H100 run
 ``python -m pytest tests/test_torch_kernels.py``; the kernels build from
@@ -66,3 +70,57 @@ def test_epdiff_step_kernel_matches_plain(cuda):
     _close(mk, mr)
     _close(uk, ur)
     assert np.isfinite(uk.cpu().numpy()).all()
+
+
+def test_mc_warp_disp_bwd_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(7)
+    img = _smooth(gen, (6, 2, 40, 36), 3.0, cuda)
+    disp = _smooth(gen, (6, 2, 40, 36), 15.0, cuda)
+    g = torch.randn((6, 2, 40, 36), generator=gen).to(cuda)
+    assert (disp.abs() > 11).any()
+    before = warp_kernels.bwd_launches
+    out = warp_kernels.mc_warp_disp_bwd(img, disp, g, 12)
+    ref = warp_kernels._mc_warp_disp_bwd_plain(img, disp, g, 12)
+    torch.cuda.synchronize()
+    assert warp_kernels.bwd_launches == before + 1
+    _close(out, ref)
+
+
+def test_epdiff_step_bwd_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(8)
+    v = _smooth(gen, (5, 2, 24, 20), 9.0, cuda)
+    m = _smooth(gen, (5, 2, 24, 20), 3.0, cuda)
+    u = _smooth(gen, (5, 2, 24, 20), 2.0, cuda)
+    gm = torch.randn((5, 2, 24, 20), generator=gen).to(cuda)
+    gu = torch.randn((5, 2, 24, 20), generator=gen).to(cuda)
+    assert (0.2 * v.abs() > 1).any()
+    before = epdiff_kernels.bwd_launches
+    outs = epdiff_kernels.epdiff_step_bwd(v, m, u, gm, gu, 0.2, 2)
+    refs = epdiff_kernels._epdiff_step_bwd_plain(v, m, u, gm, gu, 0.2, 2)
+    torch.cuda.synchronize()
+    assert epdiff_kernels.bwd_launches == before + 1
+    for out, ref in zip(outs, refs):
+        _close(out, ref)
+
+
+def test_autograd_backward_launches_the_kernels(cuda):
+    gen = torch.Generator().manual_seed(9)
+    v = _smooth(gen, (3, 2, 16, 16), 6.0, cuda).requires_grad_()
+    m = _smooth(gen, (3, 2, 16, 16), 2.0, cuda).requires_grad_()
+    u = torch.zeros((3, 2, 16, 16), device=cuda)
+    img = _smooth(gen, (3, 1, 16, 16), 1.0, cuda)
+    before = (epdiff_kernels.bwd_launches, warp_kernels.bwd_launches)
+    m1, u1 = epdiff_kernels.epdiff_step(v, m, u, 0.2, 2)
+    out = warp_kernels.bilinear_warp_banded_multi(img, u1 * 4.0, radius=12,
+                                                  img_const=True)
+    gv, gm = torch.autograd.grad(out.sum() + m1.sum(), (v, m))
+    torch.cuda.synchronize()
+    assert (epdiff_kernels.bwd_launches, warp_kernels.bwd_launches) \
+        == (before[0] + 1, before[1] + 1)
+    # the same graph through the plain versions on the card
+    v2, m2 = v.detach().clone().requires_grad_(), m.detach().clone().requires_grad_()
+    m1p, u1p = epdiff_kernels._epdiff_step_plain(v2, m2, u, 0.2, 2)
+    outp = warp_kernels._mc_warp_plain(img, u1p * 4.0, 12)
+    gvp, gmp = torch.autograd.grad(outp.sum() + m1p.sum(), (v2, m2))
+    _close(gv, gvp)
+    _close(gm, gmp)

@@ -4,7 +4,11 @@ The same numpy inputs go through the JAX function and its port. The port
 runs with device="cpu", so its kernel wrappers take their plain PyTorch
 versions; those carry the kernels' exact semantics (clamp included) and are
 held here against the Pallas kernels in interpret mode. Tolerances are f32:
-1e-5 for one op (as tests/test_ops.py), 1e-4 for five chained Euler steps.
+1e-5 for one op (as tests/test_ops.py), 1e-4 for five chained Euler steps;
+the backward kernels' plain versions are held against ``jax.vjp`` of the
+Pallas kernels at the gradient tolerances of tests/test_ops.py (2e-4 for the
+EPDiff step, 1e-4 for the warp) and against ``torch.autograd`` of the plain
+forwards at 1e-5 of the gradient's largest magnitude.
 """
 
 import jax
@@ -19,12 +23,15 @@ from cardiax.ops import fluid_metric as jfm
 from cardiax.ops import svd_smooth as jsvd
 from cardiax.ops import warp as jwarp
 from cardiax.ops.epdiff_pallas import epdiff_step as jax_epdiff_step
+from cardiax.ops.warp_pallas import _banded_warp_mc
 from cardiax.ops.warp_pallas import \
     bilinear_warp_banded_multi as jax_warp_multi
 from cardiax_torch.ops import fluid_metric as tfm
 from cardiax_torch.ops import shooting as tshooting
 from cardiax_torch.ops import svd_smooth as tsvd
 from cardiax_torch.ops import warp as twarp
+from cardiax_torch.ops import epdiff_kernels as tek
+from cardiax_torch.ops import warp_kernels as twk
 from cardiax_torch.ops.epdiff_kernels import epdiff_step
 from cardiax_torch.ops.warp_kernels import bilinear_warp_banded_multi
 
@@ -69,6 +76,61 @@ def test_epdiff_step_plain_matches_pallas_kernel():
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), atol=1e-5)
 
 
+def _k3_inputs(seed=20, shape=(2, 2, 24, 24)):
+    """v, m, u and random cotangents (gm', gu') with the in-scan clamp and
+    the border clip biting."""
+    rng = np.random.default_rng(seed)
+    v = _fields(rng, shape, 2.5, 9.0)       # |dt v| up to 1.8 px
+    m = _fields(rng, shape, 2.5, 3.0)
+    u = _fields(rng, shape, 2.5, 2.0)
+    gm = rng.normal(size=shape).astype(np.float32)
+    gu = rng.normal(size=shape).astype(np.float32)
+    b = -0.2 * v
+    assert (np.abs(b) > 1).mean() > 0.02
+    ii = np.arange(shape[-2])[:, None]
+    cy = ii + np.clip(b[:, 0], -1, 1)
+    assert ((cy < 0) | (cy > shape[-2] - 1)).any()
+    return v, m, u, gm, gu
+
+
+def _rel(out, ref):
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-12)
+
+
+def test_epdiff_step_bwd_plain_matches_pallas_vjp():
+    v, m, u, gm, gu = _k3_inputs()
+    _, vjp = jax.vjp(lambda a, b, c: jax_epdiff_step(a, b, c, 0.2, 2, True),
+                     jnp.asarray(v), jnp.asarray(m), jnp.asarray(u))
+    refs = vjp((jnp.asarray(gm), jnp.asarray(gu)))
+    outs = tek._epdiff_step_bwd_plain(*map(_t, (v, m, u, gm, gu)), 0.2, 2)
+    for out, ref in zip(outs, refs):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   atol=2e-4, rtol=2e-4)
+
+
+def test_epdiff_step_bwd_plain_matches_autograd_of_plain_forward():
+    v, m, u, gm, gu = (_t(a) for a in _k3_inputs(21))
+    leaves = [x.clone().requires_grad_() for x in (v, m, u)]
+    mo, uo = tek._epdiff_step_plain(*leaves, 0.2, 2)
+    refs = torch.autograd.grad((mo * gm).sum() + (uo * gu).sum(), leaves)
+    outs = tek._epdiff_step_bwd_plain(v, m, u, gm, gu, 0.2, 2)
+    for out, ref in zip(outs, refs):
+        assert _rel(out, ref) < 1e-5
+
+
+def test_epdiff_step_autograd_runs_the_explicit_backward():
+    """EPDiffStep: the explicit adjoint on the CPU, a None cotangent of m'
+    taken as zeros."""
+    v, m, u, _, gu = (_t(a) for a in _k3_inputs(22))
+    leaves = [x.clone().requires_grad_() for x in (v, m, u)]
+    _, uo = epdiff_step(*leaves, 0.2, 2)
+    grads = torch.autograd.grad((uo * gu).sum(), leaves)
+    refs = tek._epdiff_step_bwd_plain(v, m, u, torch.zeros_like(m), gu, 0.2, 2)
+    for out, ref in zip(grads, refs):
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
 # --------------------------------------------------------------------------- #
 # K1: the multi-channel warp's plain version vs the Pallas kernel              #
 # --------------------------------------------------------------------------- #
@@ -84,6 +146,42 @@ def test_mc_warp_plain_matches_pallas_kernel(channels):
     with torch.inference_mode():
         out_t = bilinear_warp_banded_multi(_t(field), _t(disp), radius=12)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5)
+
+
+def _k4_inputs(channels, seed):
+    rng = np.random.default_rng(seed)
+    field = _smooth(rng, (2, channels, 32, 32), 2.0, 4.0)
+    disp = _fields(rng, (2, 2, 32, 32), 3.0, 15.0)   # up to +-15 px
+    g = rng.normal(size=field.shape).astype(np.float32)
+    assert (np.abs(disp) > 11).mean() > 0.01          # the R-1 clamp bites
+    return field, disp, g
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_mc_warp_disp_bwd_plain_matches_pallas_vjp(channels):
+    field, disp, g = _k4_inputs(channels, 30 + channels)
+    _, vjp = jax.vjp(lambda f, d: _banded_warp_mc(f, d, 12, True, True),
+                     jnp.asarray(field), jnp.asarray(disp))
+    g_img, g_disp = vjp(jnp.asarray(g))
+    assert not np.asarray(g_img).any()        # img_const: no d/d field
+    out = twk._mc_warp_disp_bwd_plain(_t(field), _t(disp), _t(g), 12)
+    np.testing.assert_allclose(out.numpy(), np.asarray(g_disp),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_mc_warp_disp_bwd_plain_matches_autograd_of_plain_forward(channels):
+    field, disp, g = (_t(a) for a in _k4_inputs(channels, 40 + channels))
+    d = disp.clone().requires_grad_()
+    ref, = torch.autograd.grad((twk._mc_warp_plain(field, d, 12) * g).sum(),
+                               d)
+    out = twk._mc_warp_disp_bwd_plain(field, disp, g, 12)
+    assert _rel(out, ref) < 1e-5
+    # and through the autograd Function of the public wrapper
+    d = disp.clone().requires_grad_()
+    warped = bilinear_warp_banded_multi(field, d, radius=12, img_const=True)
+    got, = torch.autograd.grad((warped * g).sum(), d)
+    np.testing.assert_array_equal(got.numpy(), out.numpy())
 
 
 def test_exact_gather_warp_matches_jax():
