@@ -8,6 +8,8 @@ their TOS frame, ``strain_matrix (126,T)``, ``TOS (126,)`` and
 
     python -m cardiax_torch.data.synthetic --out data/slices.npy \
         --subjects 10 --slices 3 --size 128 --frames 20
+
+(``--size 768x512`` for H x W frames).
 """
 
 from __future__ import annotations
@@ -91,12 +93,14 @@ def main(argv=None) -> None:
     p.add_argument("--out", default="data/slices.npy")
     p.add_argument("--subjects", type=int, default=10)
     p.add_argument("--slices", type=int, default=3)
-    p.add_argument("--size", type=int, default=64)
+    p.add_argument("--size", default="64",
+                   help="frame side N, or H x W as 768x512")
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    h, _, w = args.size.partition("x")
     data = make_dataset(n_subjects=args.subjects, slices_per_subject=args.slices,
-                        h=args.size, w=args.size, n_frames=args.frames,
+                        h=int(h), w=int(w or h), n_frames=args.frames,
                         seed=args.seed)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     save_npy(args.out, data)

@@ -25,8 +25,8 @@ import torch
 
 from cardiax_torch.kernels.build import (check, check_inputs, load_library,
                                          require_cuda)
-from cardiax_torch.ops.warp_kernels import (_mc_warp_plain, clip_masks,
-                                            coordinate_vjp)
+from cardiax_torch.ops.warp_kernels import (_mc_warp_plain, _warp_transpose,
+                                            clip_masks, coordinate_vjp)
 
 launches = 0
 bwd_launches = 0
@@ -74,39 +74,6 @@ def _epdiff_step_plain(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
     m_new = torch.stack([my - dt * a_y, mx - dt * a_x], dim=1)
     b = -dt * v
     return m_new, b + _mc_warp_plain(u, b, radius)
-
-
-def _warp_transpose(b: torch.Tensor, g: torch.Tensor,
-                    radius: int) -> torch.Tensor:
-    """The adjoint of ``u -> _mc_warp_plain(u, b, radius)`` applied to ``g``
-    (N, C, H, W), as the band sweep of ``epdiff_pallas._bwd_kernel``: the
-    weighted cotangent of each source pixel moves to its taps by circular
-    rolls, and the hat weights are zero for every tap that wraps."""
-    _, _, h, w = g.shape
-    ii = torch.arange(h, device=g.device, dtype=g.dtype).view(1, h, 1)
-    jj = torch.arange(w, device=g.device, dtype=g.dtype).view(1, 1, w)
-    r = float(radius - 1)
-    cy = (ii + b[:, 0].clamp(-r, r)).clamp(0.0, h - 1.0)
-    cx = (jj + b[:, 1].clamp(-r, r)).clamp(0.0, w - 1.0)
-    y0, x0 = torch.floor(cy), torch.floor(cx)
-    fy, fx = cy - y0, cx - x0
-    y1 = torch.clamp(y0 + 1.0, max=h - 1.0)
-    x1 = torch.clamp(x0 + 1.0, max=w - 1.0)
-
-    def hat(k, a0, a1, f):
-        """warp_pallas.py:_hat: both terms add where a0 == a1."""
-        return torch.where(k == a0, 1.0 - f, 0.0) + torch.where(k == a1, f, 0.0)
-
-    wys = [hat(ii + d, y0, y1, fy).unsqueeze(1)
-           for d in range(-radius, radius + 1)]
-    acc = torch.zeros_like(g)
-    for e in range(-radius, radius + 1):
-        a_e = g * hat(jj + e, x0, x1, fx).unsqueeze(1)
-        b_e = torch.zeros_like(g)
-        for d in range(-radius, radius + 1):
-            b_e = b_e + torch.roll(wys[d + radius] * a_e, d, -2)
-        acc = acc + torch.roll(b_e, e, -1)
-    return acc
 
 
 def _epdiff_step_bwd_plain(v, m, u, gm, gu, dt: float, radius: int):

@@ -1,8 +1,9 @@
 """Geodesic shooting: EPDiff integration of an initial momentum field.
 
 Counterpart of ``cardiax/ops/shooting.py`` (``ad_star``,
-``expmap_shooting``, ``deform_image``; ``_grad_hw`` is
-``epdiff_kernels.grad_hw``, which the kernel's plain version shares). Given m0 (B, 2, H, W):
+``expmap_shooting``, ``expmap_svf``, ``deform_image``; ``_grad_hw`` is
+``epdiff_kernels.grad_hw``, which the kernel's plain version shares). Given
+m0 (B, 2, H, W):
 
     v_t = K m_t,  d m_t / dt = -ad*_{v_t} m_t,
     phi^{-1}_{t+dt}(x) = phi^{-1}_t(x - dt v_t(x)),
@@ -10,10 +11,19 @@ Counterpart of ``cardiax/ops/shooting.py`` (``ad_star``,
 integrated with ``n_steps`` Euler steps. Each step's pointwise core
 (derivatives, ad*, the clamped semi-Lagrangian warp of u) is one launch of
 kernel K2 (``epdiff_kernels.epdiff_step``) at band radius
-min(2, warp_radius); the solve v = K m stays a float32 DFT matmul.
-``warp_radius=None`` takes the exact composite path (``ad_star`` and the
-unclamped gather warp). The final image warp ``deform_image`` is kernel K1,
-its backward kernel K4; each step's backward is kernel K3.
+min(2, warp_radius), its backward one launch of K3; the solve v = K m stays
+a float32 DFT matmul (rfft2 above 128 px a side). ``warp_radius=None``
+takes the exact composite path (``ad_star`` and the unclamped gather warp).
+The final image warp ``deform_image`` is kernel K1; its backward is K4 when
+the image is data, else K5 (``warp_kernels``).
+
+There is no ``scan_plan`` or ``warp_plan`` here. The TPU chooses its
+lowering by VMEM size: the fused step only where a plane fits one block,
+else the composite scan of per-op kernels; full-frame, multi-channel or
+row-tiled warp kernels by frame size and channel count. On Hopper nothing
+of that binds: K2/K3 integrate every grid, and K1, K4 and K5 warp every
+frame and channel count, so the port has one path for each. (The fused
+step equals the composite one: ``tests/test_torch_warp_grad.py``.)
 """
 
 from __future__ import annotations
@@ -96,15 +106,35 @@ def expmap_shooting(m0: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
     return u_inv, v0
 
 
+def expmap_svf(v: torch.Tensor, n_squarings: int = 4,
+               warp_radius: Optional[int] = 8) -> torch.Tensor:
+    """Stationary-velocity scaling and squaring: the displacement u of
+    exp(v), exp(v)(x) = x + u(x). v (B, 2, H, W).
+
+    u <- v / 2^n, then n times u <- u(x) + u(x + u(x)): each squaring warps
+    u by itself (kernel K1, clamped at warp_radius - 1 px; backward K5, both
+    inputs). ``warp_radius=None`` takes the unclamped gather. JAX
+    checkpoints each squaring, which changes no value; here autograd keeps
+    the n intermediate fields."""
+    u = (v / (2.0 ** n_squarings)).contiguous()
+    for _ in range(n_squarings):
+        if warp_radius is None:
+            u = u + warp_vector_field(u, u)
+        else:
+            u = u + bilinear_warp_banded_multi(u, u, radius=warp_radius)
+    return u
+
+
 def deform_image(img: torch.Tensor, u_inv: torch.Tensor,
                  warp_radius: Optional[int] = 12,
                  img_const: bool = False) -> torch.Tensor:
     """deformed(x) = img(x + u_inv(x)); img (B, C, H, W), u_inv (B, 2, H, W).
 
     ``warp_radius`` bounds the final deformation: displacements clamp at
-    radius - 1 px (kernels K1 forward, K4 backward). ``None`` takes the
-    exact unclamped gather. ``img_const=True`` declares that no gradient
-    w.r.t. ``img`` is needed (warping source data)."""
+    radius - 1 px (kernel K1 forward; backward K5, or K4 with
+    ``img_const``). ``None`` takes the exact unclamped gather.
+    ``img_const=True`` declares that no gradient w.r.t. ``img`` is needed
+    (warping source data)."""
     if warp_radius is not None:
         return bilinear_warp_banded_multi(img, u_inv, radius=warp_radius,
                                           img_const=img_const)

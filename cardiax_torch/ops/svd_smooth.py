@@ -8,8 +8,9 @@ rank).
 
 The JAX start matrix is ``jax.random.normal(PRNGKey(0), (T, rank), f32)``,
 which PyTorch cannot regenerate; the flagship's (T, rank) = (40, 5) draw is
-stored below as a literal (``tests/test_torch_ops.py`` holds it against
-JAX). Other shapes raise.
+stored below as a literal. JAX's threefry bits are a function of each
+element's flat index, so the (T, 5) draw for T <= 40 is its first T rows
+(``tests/test_torch_ops.py`` holds both against JAX). Other shapes raise.
 """
 
 from __future__ import annotations
@@ -66,12 +67,13 @@ _START_40x5 = [
 @functools.lru_cache(maxsize=None)
 def start_matrix(t: int, rank: int, device=None) -> torch.Tensor:
     """The (t, rank) start matrix on ``device`` (cached: one host copy)."""
-    if (t, rank) != (40, 5):
+    if rank != 5 or not 1 <= t <= 40:
         raise NotImplementedError(
-            f"subspace_denoise: only the (T, rank) = (40, 5) start matrix of "
-            f"the JAX reference is stored; got ({t}, {rank})")
+            f"subspace_denoise: only the (T, 5) start matrices, T <= 40, of "
+            f"the JAX reference are stored; got ({t}, {rank})")
     with torch.inference_mode(False):     # a normal tensor, even if first
-        return torch.tensor(_START_40x5, dtype=torch.float32, device=device)
+        return torch.tensor(_START_40x5[:t], dtype=torch.float32,
+                            device=device)
 
 
 def _safe_orth(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

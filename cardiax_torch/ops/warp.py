@@ -1,10 +1,10 @@
 """Exact bilinear gather warp.
 
 Counterpart of ``cardiax/ops/warp.py`` (``bilinear_warp``,
-``warp_vector_field``): samples ``img`` at ``x + disp(x)`` with the sample
-coordinate clipped to the frame and no clamp on the displacement. The
-clamped warp of the kernels lives in ``warp_kernels``; both share the
-coordinate and tap helpers below.
+``warp_vector_field``, ``compose_displacements``): samples ``img`` at
+``x + disp(x)`` with the sample coordinate clipped to the frame and no clamp
+on the displacement. The clamped warp of the kernels lives in
+``warp_kernels``; both share the coordinate and tap helpers below.
 """
 
 from __future__ import annotations
@@ -75,3 +75,12 @@ def warp_vector_field(field: torch.Tensor, disp: torch.Tensor,
     wf = warp_fn or bilinear_warp
     return torch.stack([wf(field[..., i, :, :], disp)
                         for i in range(field.shape[-3])], dim=-3)
+
+
+def compose_displacements(u_outer: torch.Tensor, u_inner: torch.Tensor,
+                          warp_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Displacement of the composition (id + u_outer) o (id + u_inner):
+    u(x) = u_inner(x) + u_outer(x + u_inner(x)). ``warp_fn(img, disp)`` warps
+    one channel (default the exact gather; ``warp_kernels.
+    bilinear_warp_banded`` for the clamped kernels)."""
+    return u_inner + warp_vector_field(u_outer, u_inner, warp_fn)

@@ -5,10 +5,9 @@
 * without CUDA, ``resolve_device(None)`` and ``cardiax_torch.main.main``
   raise instead of falling back;
 * each kernel wrapper refuses to launch without a CUDA tensor; gradients
-  flow through the wrappers on the CPU, except into a warped field that is
-  not declared constant (its backward, ROADMAP B5, is not ported); the
-  EPDiff backward refuses planes under 4 px; a missing ``nvcc`` makes the
-  build raise.
+  flow through the wrappers on the CPU, into a warped field too (the plain
+  version of K5); the EPDiff backward refuses planes under 4 px; a missing
+  ``nvcc`` makes the build raise.
 """
 
 import ast
@@ -77,6 +76,8 @@ def test_kernel_launch_paths_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="not a CUDA tensor"):
         warp_kernels._mc_warp_disp_bwd_cuda(img, disp, img, 12)
     with pytest.raises(RuntimeError, match="not a CUDA tensor"):
+        warp_kernels._mc_warp_fused_bwd_cuda(img, disp, img, 12)
+    with pytest.raises(RuntimeError, match="not a CUDA tensor"):
         epdiff_kernels._epdiff_step_bwd_cuda(*_k2_inputs(), *_k2_inputs()[:2],
                                              0.2, 2)
     # a device that is neither the CPU nor CUDA does not reach a plain version
@@ -87,15 +88,22 @@ def test_kernel_launch_paths_refuse_cpu_tensors():
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad():
-    """The one input whose gradient the port cannot give: a warped field
-    not declared constant (the fused backward, ROADMAP B5)."""
-    img, disp = _k1_inputs()
-    img.requires_grad_()
-    with pytest.raises(NotImplementedError, match="B5"):
-        warp_kernels.bilinear_warp_banded_multi(img, disp, 12)
-    with torch.no_grad():      # without grad mode the same call runs
-        warp_kernels.bilinear_warp_banded_multi(img, disp, 12)
-    warp_kernels.bilinear_warp_banded_multi(img, disp, 12, img_const=True)
+    """No input that requires grad is refused any more: a warped field not
+    declared constant takes K5's plain version on the CPU; declared
+    constant, it gets no gradient and the backward is K4's alone."""
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 1, 8, 8, generator=gen).requires_grad_()
+    disp = (3.0 * torch.randn(2, 2, 8, 8, generator=gen)).requires_grad_()
+    g_img, g_disp = torch.autograd.grad(
+        warp_kernels.bilinear_warp_banded_multi(img, disp, 12).sum(),
+        (img, disp))
+    assert g_img.abs().sum() > 0 and g_disp.abs().sum() > 0
+    out = warp_kernels.bilinear_warp_banded_multi(img, disp, 12,
+                                                  img_const=True)
+    g_const, = torch.autograd.grad(out.sum(), disp)
+    assert torch.equal(g_const, g_disp)
+    with pytest.raises(RuntimeError, match="not have been used"):
+        torch.autograd.grad(out.sum(), img)
 
 
 def test_gradients_flow_through_the_wrappers_on_cpu():

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1/K2 are the forward warp and EPDiff step, K4/K3 their backward kernels;
-one test per autograd Function checks that a backward through autograd on
-the card launches its kernel.
+K1/K2 are the forward warp and EPDiff step, K4/K3 their backward kernels,
+K5 the warp's full backward (d/d field and d/d disp); one test per autograd
+Function checks that a backward through autograd on the card launches its
+kernel.
 
 Marked ``gpu``: without a CUDA device each test skips (decided inside the
 fixture, not at import). On a machine with an H100 run
@@ -84,6 +85,29 @@ def test_mc_warp_disp_bwd_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert warp_kernels.bwd_launches == before + 1
     _close(out, ref)
+
+
+@pytest.mark.parametrize("radius", [2, 12])
+def test_mc_warp_fused_bwd_kernel_matches_plain(cuda, radius):
+    gen = torch.Generator().manual_seed(10 + radius)
+    img = _smooth(gen, (6, 2, 40, 36), 3.0, cuda)
+    disp = _smooth(gen, (6, 2, 40, 36), 15.0, cuda)
+    g = torch.randn((6, 2, 40, 36), generator=gen).to(cuda)
+    assert (disp.abs() > radius - 1).any()
+    before = warp_kernels.fused_bwd_launches
+    outs = warp_kernels.mc_warp_fused_bwd(img, disp, g, radius)
+    refs = warp_kernels._mc_warp_fused_bwd_plain(img, disp, g, radius)
+    gf, gd = warp_kernels.mc_warp_fused_bwd(img, disp, g, radius,
+                                            with_disp=False)
+    torch.cuda.synchronize()
+    assert warp_kernels.fused_bwd_launches == before + 2 and gd is None
+    for out, ref in zip(outs + (gf,), refs + refs[:1]):
+        _close(out, ref)
+    # autograd of the warp with both inputs needing their gradient
+    f, d = img.clone().requires_grad_(), disp.clone().requires_grad_()
+    out = warp_kernels.bilinear_warp_banded_multi(f, d, radius=radius)
+    for got, ref in zip(torch.autograd.grad((out * g).sum(), (f, d)), refs):
+        _close(got, ref)
 
 
 def test_epdiff_step_bwd_kernel_matches_plain(cuda):

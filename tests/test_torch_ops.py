@@ -223,11 +223,13 @@ def test_spectral_resize_matches_jax(src, dst):
 # --------------------------------------------------------------------------- #
 
 def test_stored_start_matrix_is_jax_draw():
-    ref = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (40, 5),
-                                       jnp.float32))
-    np.testing.assert_array_equal(tsvd.start_matrix(40, 5).numpy(), ref)
-    with pytest.raises(NotImplementedError):
-        tsvd.start_matrix(16, 5)
+    for t in (40, 16):      # the flagship's Ts, and the large-frame cell's
+        ref = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (t, 5),
+                                           jnp.float32))
+        np.testing.assert_array_equal(tsvd.start_matrix(t, 5).numpy(), ref)
+    for shape in ((41, 5), (16, 4)):
+        with pytest.raises(NotImplementedError):
+            tsvd.start_matrix(*shape)
 
 
 def test_subspace_denoise_matches_jax():
