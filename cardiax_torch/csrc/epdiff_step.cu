@@ -29,23 +29,89 @@
 
 namespace {
 
-// d/dy of plane f at (i, j): central inside, one-sided on the first and
-// last row (exactly cardiax/ops/shooting.py:_grad_hw).
-__device__ __forceinline__ float ddy(const float* __restrict__ f, int i,
-                                     int j, int h, int w) {
-  if (i == 0) return __ldg(f + w + j) - __ldg(f + j);
-  if (i == h - 1)
-    return __ldg(f + (int64_t)i * w + j) - __ldg(f + (int64_t)(i - 1) * w + j);
-  return 0.5f * (__ldg(f + (int64_t)(i + 1) * w + j)
-                 - __ldg(f + (int64_t)(i - 1) * w + j));
+// Loads of v. K2/K3 take v as an input and read it through the read-only
+// path (__ldg); K6/K7 compute v into a scratch buffer earlier in the same
+// kernel, where the non-coherent path is undefined, so they read it with
+// plain loads (VNC = false).
+template <bool VNC>
+__device__ __forceinline__ float ldv(const float* p) {
+  if constexpr (VNC) return __ldg(p);
+  else return *p;
 }
 
-__device__ __forceinline__ float ddx(const float* __restrict__ f, int i,
-                                     int j, int w) {
+// d/dy of plane f at (i, j): central inside, one-sided on the first and
+// last row (exactly cardiax/ops/shooting.py:_grad_hw).
+template <bool NC>
+__device__ __forceinline__ float ddy(const float* f, int i, int j, int h,
+                                     int w) {
+  if (i == 0) return ldv<NC>(f + w + j) - ldv<NC>(f + j);
+  if (i == h - 1)
+    return ldv<NC>(f + (int64_t)i * w + j)
+           - ldv<NC>(f + (int64_t)(i - 1) * w + j);
+  return 0.5f * (ldv<NC>(f + (int64_t)(i + 1) * w + j)
+                 - ldv<NC>(f + (int64_t)(i - 1) * w + j));
+}
+
+template <bool NC>
+__device__ __forceinline__ float ddx(const float* f, int i, int j, int w) {
   const float* row = f + (int64_t)i * w;
-  if (j == 0) return __ldg(row + 1) - __ldg(row);
-  if (j == w - 1) return __ldg(row + j) - __ldg(row + j - 1);
-  return 0.5f * (__ldg(row + j + 1) - __ldg(row + j - 1));
+  if (j == 0) return ldv<NC>(row + 1) - ldv<NC>(row);
+  if (j == w - 1) return ldv<NC>(row + j) - ldv<NC>(row + j - 1);
+  return 0.5f * (ldv<NC>(row + j + 1) - ldv<NC>(row + j - 1));
+}
+
+// K2's body at pixel (i, j) = p of one item: v, m, u, m_out, u_out point at
+// the item's (2, H, W) planes.
+template <bool VNC>
+__device__ __forceinline__ void step_fwd_pixel(
+    const float* v, const float* __restrict__ m, const float* __restrict__ u,
+    float* __restrict__ m_out, float* __restrict__ u_out, int64_t p, int i,
+    int j, int h, int w, float dt, float r) {
+  const int64_t hw = (int64_t)h * w;
+  const float* vy_p = v;
+  const float* vx_p = v + hw;
+  const float* my_p = m;
+  const float* mx_p = m + hw;
+  const float vy = ldv<VNC>(vy_p + p), vx = ldv<VNC>(vx_p + p);
+  const float my = __ldg(my_p + p), mx = __ldg(mx_p + p);
+
+  const float dvy_dy = ddy<VNC>(vy_p, i, j, h, w);
+  const float dvy_dx = ddx<VNC>(vy_p, i, j, w);
+  const float dvx_dy = ddy<VNC>(vx_p, i, j, h, w);
+  const float dvx_dx = ddx<VNC>(vx_p, i, j, w);
+  const float dmy_dy = ddy<true>(my_p, i, j, h, w);
+  const float dmy_dx = ddx<true>(my_p, i, j, w);
+  const float dmx_dy = ddy<true>(mx_p, i, j, h, w);
+  const float dmx_dx = ddx<true>(mx_p, i, j, w);
+  const float div = dvy_dy + dvx_dx;
+  const float a_y = dvy_dy * my + dvx_dy * mx + dmy_dy * vy + dmy_dx * vx
+                    + my * div;
+  const float a_x = dvy_dx * my + dvx_dx * mx + dmx_dy * vy + dmx_dx * vx
+                    + mx * div;
+  m_out[p] = my - dt * a_y;
+  m_out[hw + p] = mx - dt * a_x;
+
+  // semi-Lagrangian map update: u'(x) = b(x) + u(x + b(x)), b = -dt v
+  const float by = -dt * vy, bx = -dt * vx;
+  const float cy = fminf(fmaxf((float)i + fminf(fmaxf(by, -r), r), 0.0f),
+                         (float)(h - 1));
+  const float cx = fminf(fmaxf((float)j + fminf(fmaxf(bx, -r), r), 0.0f),
+                         (float)(w - 1));
+  const float y0 = floorf(cy), x0 = floorf(cx);
+  const float fy = cy - y0, fx = cx - x0;
+  const int iy0 = (int)y0, ix0 = (int)x0;
+  const int iy1 = min(iy0 + 1, h - 1), ix1 = min(ix0 + 1, w - 1);
+  const float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
+  const float* uy_p = u;
+  const float* ux_p = u + hw;
+  const int64_t o00 = (int64_t)iy0 * w + ix0, o01 = (int64_t)iy0 * w + ix1;
+  const int64_t o10 = (int64_t)iy1 * w + ix0, o11 = (int64_t)iy1 * w + ix1;
+  const float gy = wx0 * (wy0 * __ldg(uy_p + o00) + fy * __ldg(uy_p + o10))
+                   + fx * (wy0 * __ldg(uy_p + o01) + fy * __ldg(uy_p + o11));
+  const float gx = wx0 * (wy0 * __ldg(ux_p + o00) + fy * __ldg(ux_p + o10))
+                   + fx * (wy0 * __ldg(ux_p + o01) + fy * __ldg(ux_p + o11));
+  u_out[p] = by + gy;
+  u_out[hw + p] = bx + gx;
 }
 
 __global__ void epdiff_step_fwd_kernel(const float* __restrict__ v,
@@ -63,47 +129,8 @@ __global__ void epdiff_step_fwd_kernel(const float* __restrict__ v,
   const int i = (int)(p / w);
   const int j = (int)(p - (int64_t)i * w);
   const int64_t base = n * 2 * hw;
-
-  const float* vy_p = v + base;
-  const float* vx_p = vy_p + hw;
-  const float* my_p = m + base;
-  const float* mx_p = my_p + hw;
-  const float vy = __ldg(vy_p + p), vx = __ldg(vx_p + p);
-  const float my = __ldg(my_p + p), mx = __ldg(mx_p + p);
-
-  const float dvy_dy = ddy(vy_p, i, j, h, w), dvy_dx = ddx(vy_p, i, j, w);
-  const float dvx_dy = ddy(vx_p, i, j, h, w), dvx_dx = ddx(vx_p, i, j, w);
-  const float dmy_dy = ddy(my_p, i, j, h, w), dmy_dx = ddx(my_p, i, j, w);
-  const float dmx_dy = ddy(mx_p, i, j, h, w), dmx_dx = ddx(mx_p, i, j, w);
-  const float div = dvy_dy + dvx_dx;
-  const float a_y = dvy_dy * my + dvx_dy * mx + dmy_dy * vy + dmy_dx * vx
-                    + my * div;
-  const float a_x = dvy_dx * my + dvx_dx * mx + dmx_dy * vy + dmx_dx * vx
-                    + mx * div;
-  m_out[base + p] = my - dt * a_y;
-  m_out[base + hw + p] = mx - dt * a_x;
-
-  // semi-Lagrangian map update: u'(x) = b(x) + u(x + b(x)), b = -dt v
-  const float by = -dt * vy, bx = -dt * vx;
-  const float cy = fminf(fmaxf((float)i + fminf(fmaxf(by, -r), r), 0.0f),
-                         (float)(h - 1));
-  const float cx = fminf(fmaxf((float)j + fminf(fmaxf(bx, -r), r), 0.0f),
-                         (float)(w - 1));
-  const float y0 = floorf(cy), x0 = floorf(cx);
-  const float fy = cy - y0, fx = cx - x0;
-  const int iy0 = (int)y0, ix0 = (int)x0;
-  const int iy1 = min(iy0 + 1, h - 1), ix1 = min(ix0 + 1, w - 1);
-  const float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
-  const float* uy_p = u + base;
-  const float* ux_p = uy_p + hw;
-  const int64_t o00 = (int64_t)iy0 * w + ix0, o01 = (int64_t)iy0 * w + ix1;
-  const int64_t o10 = (int64_t)iy1 * w + ix0, o11 = (int64_t)iy1 * w + ix1;
-  const float gy = wx0 * (wy0 * __ldg(uy_p + o00) + fy * __ldg(uy_p + o10))
-                   + fx * (wy0 * __ldg(uy_p + o01) + fy * __ldg(uy_p + o11));
-  const float gx = wx0 * (wy0 * __ldg(ux_p + o00) + fy * __ldg(ux_p + o10))
-                   + fx * (wy0 * __ldg(ux_p + o01) + fy * __ldg(ux_p + o11));
-  u_out[base + p] = by + gy;
-  u_out[base + hw + p] = bx + gx;
+  step_fwd_pixel<true>(v + base, m + base, u + base, m_out + base,
+                       u_out + base, p, i, j, h, w, dt, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -159,21 +186,23 @@ struct DyArgs { float p1, p3, p5, p7; };
 // The four products whose DxT the VJP needs.
 struct DxArgs { float p2, p4, p6, p8; };
 
+template <bool VNC>
 __device__ __forceinline__ DyArgs dy_args(const float* v, const float* m,
                                           const float* gm, int64_t hw,
                                           int64_t q, float dt) {
   const float a_y = -dt * __ldg(gm + q), a_x = -dt * __ldg(gm + hw + q);
   const float my = __ldg(m + q), mx = __ldg(m + hw + q);
-  const float vy = __ldg(v + q);
+  const float vy = ldv<VNC>(v + q);
   return {2.0f * a_y * my + a_x * mx, a_y * mx, a_y * vy, a_x * vy};
 }
 
+template <bool VNC>
 __device__ __forceinline__ DxArgs dx_args(const float* v, const float* m,
                                           const float* gm, int64_t hw,
                                           int64_t q, float dt) {
   const float a_y = -dt * __ldg(gm + q), a_x = -dt * __ldg(gm + hw + q);
   const float my = __ldg(m + q), mx = __ldg(m + hw + q);
-  const float vx = __ldg(v + hw + q);
+  const float vx = ldv<VNC>(v + hw + q);
   return {a_x * my, a_y * my + 2.0f * a_x * mx, a_y * vx, a_x * vx};
 }
 
@@ -195,36 +224,25 @@ __device__ __forceinline__ float hat(int k, Axis a) {
   return (k == a.a0 ? 1.0f - a.f : 0.0f) + (k == a.a1 ? a.f : 0.0f);
 }
 
-__global__ void epdiff_step_bwd_kernel(const float* __restrict__ v,
-                                       const float* __restrict__ m,
-                                       const float* __restrict__ u,
-                                       const float* __restrict__ gmo,
-                                       const float* __restrict__ guo,
-                                       float* __restrict__ gv,
-                                       float* __restrict__ gm,
-                                       float* __restrict__ gu,
-                                       int64_t n_pix, int h, int w, float dt,
-                                       int R) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_pix) return;
+// K3's body at pixel (i, j) = p of one item: every pointer is at the
+// item's (2, H, W) planes.
+template <bool VNC>
+__device__ __forceinline__ void step_bwd_pixel(
+    const float* vb, const float* __restrict__ mb, const float* __restrict__ ub,
+    const float* __restrict__ gmb, const float* __restrict__ gub, float* gv,
+    float* gm, float* __restrict__ gu, int64_t p, int i, int j, int h, int w,
+    float dt, int R) {
   const float r = (float)(R - 1);
   const int64_t hw = (int64_t)h * w;
-  const int64_t n = idx / hw;
-  const int64_t p = idx - n * hw;
-  const int i = (int)(p / w);
-  const int j = (int)(p - (int64_t)i * w);
-  const int64_t base = n * 2 * hw;
-  const float* vb = v + base;
-  const float* mb = m + base;
-  const float* ub = u + base;
-  const float* gmb = gmo + base;
-  const float* gub = guo + base;
-
-  const float vy = __ldg(vb + p), vx = __ldg(vb + hw + p);
-  const float dvy_dy = ddy(vb, i, j, h, w), dvy_dx = ddx(vb, i, j, w);
-  const float dvx_dy = ddy(vb + hw, i, j, h, w), dvx_dx = ddx(vb + hw, i, j, w);
-  const float dmy_dy = ddy(mb, i, j, h, w), dmy_dx = ddx(mb, i, j, w);
-  const float dmx_dy = ddy(mb + hw, i, j, h, w), dmx_dx = ddx(mb + hw, i, j, w);
+  const float vy = ldv<VNC>(vb + p), vx = ldv<VNC>(vb + hw + p);
+  const float dvy_dy = ddy<VNC>(vb, i, j, h, w);
+  const float dvy_dx = ddx<VNC>(vb, i, j, w);
+  const float dvx_dy = ddy<VNC>(vb + hw, i, j, h, w);
+  const float dvx_dx = ddx<VNC>(vb + hw, i, j, w);
+  const float dmy_dy = ddy<true>(mb, i, j, h, w);
+  const float dmy_dx = ddx<true>(mb, i, j, w);
+  const float dmx_dy = ddy<true>(mb + hw, i, j, h, w);
+  const float dmx_dx = ddx<true>(mb + hw, i, j, w);
   const float div = dvy_dy + dvx_dx;
   const float gmy = __ldg(gmb + p), gmx = __ldg(gmb + hw + p);
   const float guy = __ldg(gub + p), gux = __ldg(gub + hw + p);
@@ -267,8 +285,8 @@ __global__ void epdiff_step_bwd_kernel(const float* __restrict__ v,
         const int is = i - d;
         if (is < 0 || is >= h) continue;
         const int64_t q = (int64_t)is * w + js;
-        const Axis sy = axis_coord(is, -dt * __ldg(vb + q), r, h);
-        const Axis sxa = axis_coord(js, -dt * __ldg(vb + hw + q), r, w);
+        const Axis sy = axis_coord(is, -dt * ldv<VNC>(vb + q), r, h);
+        const Axis sxa = axis_coord(js, -dt * ldv<VNC>(vb + hw + q), r, w);
         const float hy = hat(i, sy), hx = hat(j, sxa);
         be[0] += hy * (__ldg(gub + q) * hx);
         be[1] += hy * (__ldg(gub + hw + q) * hx);
@@ -277,17 +295,17 @@ __global__ void epdiff_step_bwd_kernel(const float* __restrict__ v,
     acc_gu[0] += be[0];
     acc_gu[1] += be[1];
   }
-  gu[base + p] = acc_gu[0];
-  gu[base + hw + p] = acc_gu[1];
+  gu[p] = acc_gu[0];
+  gu[hw + p] = acc_gu[1];
 
   // --- ad* adjoint ---------------------------------------------------------
   const float a_y = -dt * gmy, a_x = -dt * gmx;
-  const DyArgs yc = dy_args(vb, mb, gmb, hw, p, dt);
-  const DyArgs yu = i > 0 ? dy_args(vb, mb, gmb, hw, p - w, dt) : yc;
-  const DyArgs yd = i < h - 1 ? dy_args(vb, mb, gmb, hw, p + w, dt) : yc;
-  const DxArgs xc = dx_args(vb, mb, gmb, hw, p, dt);
-  const DxArgs xl = j > 0 ? dx_args(vb, mb, gmb, hw, p - 1, dt) : xc;
-  const DxArgs xr = j < w - 1 ? dx_args(vb, mb, gmb, hw, p + 1, dt) : xc;
+  const DyArgs yc = dy_args<VNC>(vb, mb, gmb, hw, p, dt);
+  const DyArgs yu = i > 0 ? dy_args<VNC>(vb, mb, gmb, hw, p - w, dt) : yc;
+  const DyArgs yd = i < h - 1 ? dy_args<VNC>(vb, mb, gmb, hw, p + w, dt) : yc;
+  const DxArgs xc = dx_args<VNC>(vb, mb, gmb, hw, p, dt);
+  const DxArgs xl = j > 0 ? dx_args<VNC>(vb, mb, gmb, hw, p - 1, dt) : xc;
+  const DxArgs xr = j < w - 1 ? dx_args<VNC>(vb, mb, gmb, hw, p + 1, dt) : xc;
   const float gv_y = dT(yu.p1, yc.p1, yd.p1, i, h) + dT(xl.p2, xc.p2, xr.p2, j, w)
                      + a_y * dmy_dy + a_x * dmx_dy - dt * g_by;
   const float gv_x = dT(yu.p3, yc.p3, yd.p3, i, h) + dT(xl.p4, xc.p4, xr.p4, j, w)
@@ -296,10 +314,200 @@ __global__ void epdiff_step_bwd_kernel(const float* __restrict__ v,
                      + dT(yu.p5, yc.p5, yd.p5, i, h) + dT(xl.p6, xc.p6, xr.p6, j, w);
   const float gm_x = gmx + a_y * dvx_dy + a_x * (dvx_dx + div)
                      + dT(yu.p7, yc.p7, yd.p7, i, h) + dT(xl.p8, xc.p8, xr.p8, j, w);
-  gv[base + p] = gv_y;
-  gv[base + hw + p] = gv_x;
-  gm[base + p] = gm_y;
-  gm[base + hw + p] = gm_x;
+  gv[p] = gv_y;
+  gv[hw + p] = gv_x;
+  gm[p] = gm_y;
+  gm[hw + p] = gm_x;
+}
+
+__global__ void epdiff_step_bwd_kernel(const float* __restrict__ v,
+                                       const float* __restrict__ m,
+                                       const float* __restrict__ u,
+                                       const float* __restrict__ gmo,
+                                       const float* __restrict__ guo,
+                                       float* __restrict__ gv,
+                                       float* __restrict__ gm,
+                                       float* __restrict__ gu,
+                                       int64_t n_pix, int h, int w, float dt,
+                                       int R) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_pix) return;
+  const int64_t hw = (int64_t)h * w;
+  const int64_t n = idx / hw;
+  const int64_t p = idx - n * hw;
+  const int i = (int)(p / w);
+  const int j = (int)(p - (int64_t)i * w);
+  const int64_t base = n * 2 * hw;
+  step_bwd_pixel<true>(v + base, m + base, u + base, gmo + base, guo + base,
+                       gv + base, gm + base, gu + base, p, i, j, h, w, dt, R);
+}
+
+
+// ---------------------------------------------------------------------------
+// K6 and K7: the step with the fluid-metric solve inside the kernel.
+//
+// K6 replaces cardiax/ops/epdiff_pallas.py:_fwd_solve_kernel (launched
+// through epdiff_step_solve), K7 _bwd_solve_kernel (_step_solve_bwd). Per
+// item (2, H, W), with the solve of fluid_metric.solve_mm_operands,
+//
+//   v = K m = Ty^T [ (Ty m Tx^T) * W ] Tx          (per channel),
+//
+// K6 computes (m, u) -> (m', u') as K2 does on that v, and K7 computes
+// (m, u, gm', gu') -> (g_m + K g_v, g_u) from K3's (g_v, g_m, g_u) on the
+// recomputed v (K is self-adjoint). No v leaves the kernel and none is saved
+// for the backward, as on the TPU.
+//
+// Bound on the H100: f32 operations. The solve is four (S x S)(S x S)
+// products per channel, 4 H W (H + W) flops: K6 solves 2 planes, K7 4, so
+// at the flagship's 64^2 items the solve is ~96% of the arithmetic and
+// about 35 flops for every byte each kernel must move.
+//
+// Design (simple and right first): one block of 256 threads per item, so
+// that __syncthreads() orders every phase of the item. Phase A runs the
+// four products per channel as a shared-memory tiled f32 GEMM (64 x 64
+// output tiles, 16-deep k tiles, a 4 x 4 register tile a thread, fmaf on
+// the CUDA cores: no tensor cores, hence no TF32, and no library GEMM).
+// The intermediates and v live in a per-item global scratch buffer that
+// only the item's own block writes and reads (L1/L2-resident at these
+// sizes; a 128^2 item does not fit shared memory), read with plain loads,
+// never __ldg. Phase B runs K2's (K6) or K3's (K7) per-pixel body over the
+// item's pixels, reading v from the scratch; K7 writes g_v there and phase C
+// applies the same four products to it and adds the result to g_m.
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;     // output tile side
+constexpr int kDepth = 16;    // k tile depth
+constexpr int kPad = kTile + 1;
+
+// C (M x N, row-major) = A (M x K) B (K x N) on one block, where element
+// (i, k) of A is A[i * sai + k * sak] and (k, j) of B is B[k * sbk + j * sbj]
+// (so a transpose is a swap of strides). With wgt, C = (A B) * wgt
+// elementwise; with accumulate, C += A B. The sums run over k in ascending
+// order, one fmaf each. Every thread of the block must call it; it begins
+// with a __syncthreads(), so the products' inputs written earlier by the
+// block are visible, and ends with one, so its output is.
+__device__ void block_mm(const float* A, int sai, int sak, const float* B,
+                         int sbk, int sbj, const float* wgt, float* C,
+                         bool accumulate, int M, int N, int K, float* smA,
+                         float* smB) {
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;
+  for (int m0 = 0; m0 < M; m0 += kTile) {
+    for (int n0 = 0; n0 < N; n0 += kTile) {
+      float acc[4][4];
+      for (int a = 0; a < 4; ++a)
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+      for (int k0 = 0; k0 < K; k0 += kDepth) {
+        __syncthreads();
+        for (int l = 0; l < kDepth * kTile / kThreads; ++l) {
+          const int e = tid + kThreads * l;
+          // the index that is contiguous in memory varies fastest
+          int k = sak == 1 ? e % kDepth : e / kTile;
+          const int mi = sak == 1 ? e / kDepth : e % kTile;
+          int gk = k0 + k, gi = m0 + mi;
+          smA[k * kPad + mi] = (gi < M && gk < K)
+              ? A[(int64_t)gi * sai + (int64_t)gk * sak] : 0.0f;
+          k = sbk == 1 ? e % kDepth : e / kTile;
+          const int nj = sbk == 1 ? e / kDepth : e % kTile;
+          gk = k0 + k;
+          const int gj = n0 + nj;
+          smB[k * kPad + nj] = (gj < N && gk < K)
+              ? B[(int64_t)gk * sbk + (int64_t)gj * sbj] : 0.0f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < kDepth; ++kk) {
+          float av[4], bv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) av[a] = smA[kk * kPad + tr + 16 * a];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) bv[b] = smB[kk * kPad + tc + 16 * b];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+        }
+      }
+      for (int a = 0; a < 4; ++a) {
+        const int gi = m0 + tr + 16 * a;
+        if (gi >= M) continue;
+        for (int b = 0; b < 4; ++b) {
+          const int gj = n0 + tc + 16 * b;
+          if (gj >= N) continue;
+          const int64_t o = (int64_t)gi * N + gj;
+          float val = acc[a][b];
+          if (wgt != nullptr) val *= __ldg(wgt + o);
+          C[o] = accumulate ? C[o] + val : val;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// out = Ty^T [ (Ty x Tx^T) * W ] Tx on one (h, w) plane, in the order of
+// epdiff_pallas.py:_solve_mm; t1, t2 are (h, w) scratch planes (t2 may be
+// out when out is not accumulated into). With accumulate, out += K x.
+__device__ void block_solve(const float* x, const float* ty, const float* tx,
+                            const float* wgt, float* out, bool accumulate,
+                            float* t1, float* t2, int h, int w, float* smA,
+                            float* smB) {
+  block_mm(ty, h, 1, x, w, 1, nullptr, t1, false, h, w, h, smA, smB);
+  block_mm(t1, w, 1, tx, 1, w, wgt, t2, false, h, w, w, smA, smB);
+  block_mm(ty, 1, h, t2, w, 1, nullptr, t1, false, h, w, h, smA, smB);
+  block_mm(t1, w, 1, tx, w, 1, nullptr, out, accumulate, h, w, w, smA, smB);
+}
+
+// scratch: 3 planes an item, (v_y, v_x, t)
+__global__ void __launch_bounds__(kThreads) epdiff_step_solve_fwd_kernel(
+    const float* __restrict__ m, const float* __restrict__ u,
+    const float* __restrict__ ty, const float* __restrict__ tx,
+    const float* __restrict__ wgt, float* __restrict__ m_out,
+    float* __restrict__ u_out, float* scratch, int h, int w, float dt,
+    float r) {
+  __shared__ float smA[kDepth * kPad], smB[kDepth * kPad];
+  const int64_t hw = (int64_t)h * w;
+  const int64_t base = (int64_t)blockIdx.x * 2 * hw;
+  float* v = scratch + (int64_t)blockIdx.x * 3 * hw;
+  float* t = v + 2 * hw;
+  for (int c = 0; c < 2; ++c)         // phase A: v = K m
+    block_solve(m + base + c * hw, ty, tx, wgt, v + c * hw, false, t,
+                v + c * hw, h, w, smA, smB);
+  for (int64_t p = threadIdx.x; p < hw; p += kThreads) {   // phase B
+    const int i = (int)(p / w);
+    const int j = (int)(p - (int64_t)i * w);
+    step_fwd_pixel<false>(v, m + base, u + base, m_out + base, u_out + base,
+                          p, i, j, h, w, dt, r);
+  }
+}
+
+// scratch: 5 planes an item, (v_y, v_x, t, g_v y, g_v x)
+__global__ void __launch_bounds__(kThreads) epdiff_step_solve_bwd_kernel(
+    const float* __restrict__ m, const float* __restrict__ u,
+    const float* __restrict__ ty, const float* __restrict__ tx,
+    const float* __restrict__ wgt, const float* __restrict__ gmo,
+    const float* __restrict__ guo, float* gm, float* __restrict__ gu,
+    float* scratch, int h, int w, float dt, int R) {
+  __shared__ float smA[kDepth * kPad], smB[kDepth * kPad];
+  const int64_t hw = (int64_t)h * w;
+  const int64_t base = (int64_t)blockIdx.x * 2 * hw;
+  float* v = scratch + (int64_t)blockIdx.x * 5 * hw;
+  float* t = v + 2 * hw;
+  float* gv = v + 3 * hw;
+  for (int c = 0; c < 2; ++c)         // phase A: v = K m, recomputed
+    block_solve(m + base + c * hw, ty, tx, wgt, v + c * hw, false, t,
+                v + c * hw, h, w, smA, smB);
+  for (int64_t p = threadIdx.x; p < hw; p += kThreads) {   // phase B
+    const int i = (int)(p / w);
+    const int j = (int)(p - (int64_t)i * w);
+    step_bwd_pixel<false>(v, m + base, u + base, gmo + base, guo + base, gv,
+                          gm + base, gu + base, p, i, j, h, w, dt, R);
+  }
+  // phase C: g_m += K g_v; v is dead, so its plane serves as scratch
+  for (int c = 0; c < 2; ++c)
+    block_solve(gv + c * hw, ty, tx, wgt, gm + base + c * hw, true, t, v, h,
+                w, smA, smB);
 }
 
 }  // namespace
@@ -333,5 +541,37 @@ extern "C" int epdiff_step_bwd(const float* v, const float* m, const float* u,
   const int64_t blocks = (n_pix + threads - 1) / threads;
   epdiff_step_bwd_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
       v, m, u, gm_out, gu_out, gv, gm, gu, n_pix, h, w, dt, radius);
+  return (int)cudaGetLastError();
+}
+
+// m, u, m_out, u_out: (N, 2, H, W); ty (H, H), tx (W, W), wgt (H, W); the
+// scratch holds N * 3 * H * W floats. All f32, contiguous, on the current
+// device; H, W >= 2. Returns cudaGetLastError().
+extern "C" int epdiff_step_solve_fwd(const float* m, const float* u,
+                                     const float* ty, const float* tx,
+                                     const float* wgt, float* m_out,
+                                     float* u_out, float* scratch, int n,
+                                     int h, int w, float dt, int radius,
+                                     cudaStream_t stream) {
+  if (n == 0) return (int)cudaSuccess;
+  epdiff_step_solve_fwd_kernel<<<n, kThreads, 0, stream>>>(
+      m, u, ty, tx, wgt, m_out, u_out, scratch, h, w, dt,
+      (float)(radius - 1));
+  return (int)cudaGetLastError();
+}
+
+// m, u, gm_out, gu_out (the cotangents of m', u') -> gm, gu: (N, 2, H, W);
+// operands as above; the scratch holds N * 5 * H * W floats. All f32,
+// contiguous, on the current device; H, W >= 4. Returns cudaGetLastError().
+extern "C" int epdiff_step_solve_bwd(const float* m, const float* u,
+                                     const float* ty, const float* tx,
+                                     const float* wgt, const float* gm_out,
+                                     const float* gu_out, float* gm,
+                                     float* gu, float* scratch, int n, int h,
+                                     int w, float dt, int radius,
+                                     cudaStream_t stream) {
+  if (n == 0) return (int)cudaSuccess;
+  epdiff_step_solve_bwd_kernel<<<n, kThreads, 0, stream>>>(
+      m, u, ty, tx, wgt, gm_out, gu_out, gm, gu, scratch, h, w, dt, radius);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """The port's ops layer: counterparts of ``cardiax.ops``, under its names
-(the strain ops, ``FluidMetric`` and ``svd_denoise`` are not ported)."""
+and with its signatures (the strain ops and ``svd_denoise`` are not
+ported)."""
 
-from cardiax_torch.ops.fluid_metric import flat, sharp
+from cardiax_torch.ops.fluid_metric import FluidMetric, flat, sharp
 from cardiax_torch.ops.shooting import (
     ad_star,
     deform_image,
@@ -13,7 +14,7 @@ from cardiax_torch.ops.warp import (bilinear_warp, compose_displacements,
                                     warp_vector_field)
 
 __all__ = [
-    "flat", "sharp",
+    "FluidMetric", "flat", "sharp",
     "ad_star", "deform_image", "expmap_shooting", "expmap_svf",
     "subspace_denoise",
     "bilinear_warp", "compose_displacements", "warp_vector_field",

@@ -1,19 +1,24 @@
-"""K2 + K3: one EPDiff Euler step and its VJP, CUDA kernels + plain.
+"""K2/K3 and K6/K7: one EPDiff Euler step and its VJP, CUDA kernels + plain.
 
 Counterpart of ``cardiax/ops/epdiff_pallas.py:epdiff_step`` (``_fwd_kernel``
-forward, ``_bwd_kernel`` backward), unpacked items only:
+forward, ``_bwd_kernel`` backward) and ``epdiff_step_solve``
+(``_fwd_solve_kernel``, ``_bwd_solve_kernel``), unpacked items only:
 
     (v, m, u) (N, 2, H, W) -> (m - dt * ad*_v m,  b + warp(u, b)),  b = -dt v
 
 with one-sided border differences and the warp clamped to
-|b| <= radius - 1. The kernels are in ``cardiax_torch/csrc/epdiff_step.cu``;
-``_epdiff_step_plain`` and ``_epdiff_step_bwd_plain`` are the same functions
-in plain PyTorch, used for CPU tensors and as the kernels' checks.
-``EPDiffStep`` ties them into autograd; it saves (v, m, u) as
-``epdiff_pallas._step_fwd`` does.
+|b| <= radius - 1; the fused-solve step computes v = K m itself, as the
+four products of ``epdiff_pallas._solve_mm`` on the operands of
+``fluid_metric.solve_mm_operands``, and its VJP adds K g_v to g_m. The
+kernels are in ``cardiax_torch/csrc/epdiff_step.cu``; the ``_plain``
+functions here are the same functions in plain PyTorch, used for CPU
+tensors and as the kernels' checks. ``EPDiffStep`` ties K2/K3 into autograd
+and saves (v, m, u) as ``epdiff_pallas._step_fwd`` does;
+``EPDiffStepSolve`` ties K6/K7 in and saves only (m, u), as
+``_step_solve_fwd`` does.
 
-``launches`` and ``bwd_launches`` count the forward and backward kernel
-launches of this process.
+``launches``, ``bwd_launches``, ``solve_launches`` and
+``solve_bwd_launches`` count the K2, K3, K6 and K7 launches of this process.
 """
 
 from __future__ import annotations
@@ -25,11 +30,14 @@ import torch
 
 from cardiax_torch.kernels.build import (check, check_inputs, load_library,
                                          require_cuda)
+from cardiax_torch.ops.fluid_metric import solve_mm_operands
 from cardiax_torch.ops.warp_kernels import (_mc_warp_plain, _warp_transpose,
                                             clip_masks, coordinate_vjp)
 
 launches = 0
 bwd_launches = 0
+solve_launches = 0
+solve_bwd_launches = 0
 
 
 def grad_hw(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -192,18 +200,158 @@ class EPDiffStep(torch.autograd.Function):
         return g_v, g_m, g_u, None, None
 
 
+def _check_step_inputs(what: str, radius: int, **planes) -> None:
+    """The checks of ``epdiff_step``/``epdiff_step_solve``: every input
+    (N, 2, H, W) of one shape, H, W >= 2, radius >= 1, contiguous f32."""
+    first = next(iter(planes.values()))
+    if first.dim() != 4 or first.shape[1] != 2 \
+            or any(t.shape != first.shape for t in planes.values()):
+        shapes = ", ".join(f"{k} {tuple(t.shape)}" for k, t in planes.items())
+        raise ValueError(f"{what}: {shapes} must all be (N, 2, H, W)")
+    if min(first.shape[-2:]) < 2 or radius < 1:
+        raise ValueError(f"{what}: needs H, W >= 2 and radius >= 1")
+    check_inputs(what, **planes)
+
+
 def epdiff_step(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
                 dt: float, radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(v, m, u) (N, 2, H, W) -> (m', u') of one Euler step, differentiable.
 
     A CUDA tensor goes through the kernels (or raises); a CPU tensor through
     the plain versions. Inputs must be contiguous float32."""
-    if v.dim() != 4 or v.shape[1] != 2 or m.shape != v.shape \
-            or u.shape != v.shape:
-        raise ValueError(f"epdiff_step_fwd: v {tuple(v.shape)}, m "
-                         f"{tuple(m.shape)}, u {tuple(u.shape)} must all be "
-                         f"(N, 2, H, W)")
-    if min(v.shape[-2:]) < 2 or radius < 1:
-        raise ValueError("epdiff_step_fwd: needs H, W >= 2 and radius >= 1")
-    check_inputs("epdiff_step_fwd", v=v, m=m, u=u)
+    _check_step_inputs("epdiff_step_fwd", radius, v=v, m=m, u=u)
     return EPDiffStep.apply(v, m, u, dt, radius)
+
+
+# --------------------------------------------------------------------------- #
+# K6 + K7: the step with the solve v = K m inside the kernel                   #
+# --------------------------------------------------------------------------- #
+
+def _solve_plain(x: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
+                 wgt: torch.Tensor) -> torch.Tensor:
+    """Ty^T [ (Ty x Tx^T) * W ] Tx on each (H, W) plane of x: the four
+    products of ``epdiff_pallas._solve_mm``, in its order."""
+    a = ty @ x
+    a = (a @ tx.T) * wgt
+    a = ty.T @ a
+    return a @ tx
+
+
+def _epdiff_step_solve_plain(m, u, ty, tx, wgt, dt: float, radius: int):
+    """K6 in plain PyTorch: v = K m, then ``_epdiff_step_plain``
+    (``epdiff_pallas._fwd_solve_kernel`` term for term)."""
+    return _epdiff_step_plain(_solve_plain(m, ty, tx, wgt), m, u, dt, radius)
+
+
+def _epdiff_step_solve_bwd_plain(m, u, ty, tx, wgt, gm, gu, dt: float,
+                                 radius: int):
+    """(g_m, g_u) of the fused-solve step (K7 in plain PyTorch): v
+    recomputed, K3's adjoint, then g_m += K g_v (K is self-adjoint;
+    ``epdiff_pallas._bwd_solve_kernel``)."""
+    v = _solve_plain(m, ty, tx, wgt)
+    g_v, g_m, g_u = _epdiff_step_bwd_plain(v, m, u, gm, gu, dt, radius)
+    return g_m + _solve_plain(g_v, ty, tx, wgt), g_u
+
+
+def _solve_fn(name: str, n_ptrs: int):
+    fn = getattr(load_library("epdiff_step"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt: float, radius: int):
+    global solve_launches
+    require_cuda("epdiff_step_solve_fwd", m=m, u=u, ty=ty, tx=tx, wgt=wgt)
+    fn = _solve_fn("epdiff_step_solve_fwd", 8)
+    n, _, h, w = m.shape
+    m_out = torch.empty_like(m)
+    u_out = torch.empty_like(u)
+    # per-item workspace (v and one plane of intermediates), not an output
+    scratch = torch.empty((n, 3, h, w), dtype=torch.float32, device=m.device)
+    with torch.cuda.device(m.device):
+        err = fn(m.data_ptr(), u.data_ptr(), ty.data_ptr(), tx.data_ptr(),
+                 wgt.data_ptr(), m_out.data_ptr(), u_out.data_ptr(),
+                 scratch.data_ptr(), n, h, w, float(dt), int(radius),
+                 torch.cuda.current_stream().cuda_stream)
+    check(err, "epdiff_step_solve_fwd")
+    solve_launches += 1
+    return m_out, u_out
+
+
+def _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt: float,
+                                radius: int):
+    global solve_bwd_launches
+    require_cuda("epdiff_step_solve_bwd", m=m, u=u, ty=ty, tx=tx, wgt=wgt,
+                 gm=gm, gu=gu)
+    fn = _solve_fn("epdiff_step_solve_bwd", 10)
+    n, _, h, w = m.shape
+    g_m = torch.empty_like(m)
+    g_u = torch.empty_like(u)
+    # per-item workspace: v, one plane of intermediates, g_v
+    scratch = torch.empty((n, 5, h, w), dtype=torch.float32, device=m.device)
+    with torch.cuda.device(m.device):
+        err = fn(m.data_ptr(), u.data_ptr(), ty.data_ptr(), tx.data_ptr(),
+                 wgt.data_ptr(), gm.data_ptr(), gu.data_ptr(),
+                 g_m.data_ptr(), g_u.data_ptr(), scratch.data_ptr(), n, h, w,
+                 float(dt), int(radius),
+                 torch.cuda.current_stream().cuda_stream)
+    check(err, "epdiff_step_solve_bwd")
+    solve_bwd_launches += 1
+    return g_m, g_u
+
+
+def epdiff_step_solve_bwd(m, u, ty, tx, wgt, gm, gu, dt: float, radius: int):
+    """(g_m, g_u) of one fused-solve step from the cotangents (gm, gu) of
+    its outputs. A CUDA tensor goes through kernel K7 (or raises), a CPU
+    tensor through ``_epdiff_step_solve_bwd_plain``. Planes under 4 px are
+    refused, as by ``epdiff_step_bwd``."""
+    if min(m.shape[-2:]) < 4:
+        raise ValueError("epdiff_step_solve_bwd: needs H, W >= 4 (the "
+                         "transposed one-sided stencil), got "
+                         f"{tuple(m.shape[-2:])}")
+    check_inputs("epdiff_step_solve_bwd", m=m, u=u, gm=gm, gu=gu)
+    if m.device.type == "cpu":
+        return _epdiff_step_solve_bwd_plain(m, u, ty, tx, wgt, gm, gu, dt,
+                                            radius)
+    return _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt, radius)
+
+
+class EPDiffStepSolve(torch.autograd.Function):
+    """K6 forward, K7 backward. Saves only (m, u): the backward recomputes
+    v. The solve's operands are constants without gradients, kept on the
+    context; a cotangent that arrives as None is zeros."""
+
+    @staticmethod
+    def forward(ctx, m, u, ty, tx, wgt, dt: float, radius: int):
+        ctx.dt, ctx.radius = dt, radius
+        ctx.operands = (ty, tx, wgt)
+        ctx.save_for_backward(m, u)
+        if m.device.type == "cpu":
+            return _epdiff_step_solve_plain(m, u, ty, tx, wgt, dt, radius)
+        return _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt, radius)
+
+    @staticmethod
+    def backward(ctx, gm, gu):
+        m, u = ctx.saved_tensors
+        gm = torch.zeros_like(m) if gm is None else gm.contiguous()
+        gu = torch.zeros_like(u) if gu is None else gu.contiguous()
+        g_m, g_u = epdiff_step_solve_bwd(m, u, *ctx.operands, gm, gu, ctx.dt,
+                                         ctx.radius)
+        return g_m, g_u, None, None, None, None, None
+
+
+def epdiff_step_solve(m: torch.Tensor, u: torch.Tensor, dt: float,
+                      radius: int, alpha: float = 2.0, gamma: float = 1.0,
+                      power: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m, u) (N, 2, H, W) -> (m', u') of one Euler step with v = K m
+    computed inside the step (K the fluid metric of (alpha, gamma, power)),
+    differentiable in m and u.
+
+    A CUDA tensor goes through kernels K6/K7 (or raises); a CPU tensor
+    through the plain versions. Inputs must be contiguous float32."""
+    _check_step_inputs("epdiff_step_solve_fwd", radius, m=m, u=u)
+    h, w = m.shape[-2:]
+    ty, tx, wgt = solve_mm_operands(h, w, alpha, gamma, power, m.device)
+    return EPDiffStepSolve.apply(m, u, ty, tx, wgt, dt, radius)

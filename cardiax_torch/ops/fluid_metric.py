@@ -2,11 +2,15 @@
 
 Counterpart of ``cardiax/ops/fluid_metric.py``: ``helmholtz_spectrum``,
 ``_real_dft_basis``, ``sharp`` (v = K m), ``flat`` (m = L v),
-``_band_resize_matrix`` and ``spectral_resize``. The spectrum is that of the
-discrete 5-point Laplacian. Sides up to ``_MM_MAX_SIDE`` run as real-DFT
-matmuls (float32, no TF32: ``cardiax_torch.device.set_numerics``), larger
-ones through ``rfft2``. The lane-packed TPU variants (``sharp_packed``,
-``solve_mm_operands``) are not ported.
+``_band_resize_matrix``, ``spectral_resize``, ``solve_mm_operands`` and
+``FluidMetric``. The spectrum is that of the discrete 5-point Laplacian.
+Sides up to ``_MM_MAX_SIDE`` run as real-DFT matmuls (float32, no TF32:
+``cardiax_torch.device.set_numerics``), larger ones through ``rfft2``.
+``solve_mm_operands`` hands the same matmul operands to the fused-solve
+EPDiff kernel (K6/K7), which runs the four products in its own body. The
+lane-packed TPU variants (``sharp_packed`` and the block-diagonal bases of
+``_helmholtz_mm_weights_packed``) are not ported: the port does not pack
+items.
 """
 
 from __future__ import annotations
@@ -78,14 +82,32 @@ def _helmholtz_mm_weights(h: int, w: int, alpha: float, gamma: float,
     return ty, tx, wgt
 
 
+def _mm_operands(h: int, w: int, alpha: float, gamma: float, power: int,
+                 inverse: bool, device):
+    """(ty, tx, wgt) of ``_helmholtz_mm_weights`` as cached device
+    constants."""
+    key = (h, w, float(alpha), float(gamma), int(power), inverse)
+    return tuple(_const(torch.device(device), ("mm", i) + key,
+                        lambda i=i: _helmholtz_mm_weights(*key)[i])
+                 for i in range(3))
+
+
+def solve_mm_operands(h_item: int, w_item: int, alpha: float = 2.0,
+                      gamma: float = 1.0, power: int = 2, device="cpu"):
+    """(ty (H, H), tx (W, W), wgt (H, W)) float32 on ``device``: the
+    operands of the matmul-form solve v = Ty^T [ (Ty m Tx^T) * W ] Tx on one
+    (H, W) item, which the fused-solve EPDiff kernels (K6/K7) run in their
+    own body. JAX's ``solve_mm_operands`` at pr = pc = 1, without its
+    transposed copies: the kernels read Tx^T and Ty^T as index swaps. The
+    TPU's block-diagonal bases for lane-packed planes are not ported."""
+    return _mm_operands(h_item, w_item, alpha, gamma, power, True, device)
+
+
 def _helmholtz_mm(x: torch.Tensor, alpha: float, gamma: float, power: int,
                   inverse: bool) -> torch.Tensor:
     """Ty^T [ (Ty x Tx^T) * W ] Tx on (..., H, W)."""
     h, w = x.shape[-2:]
-    key = (h, w, float(alpha), float(gamma), int(power), inverse)
-    ty, tx, wgt = (_const(x.device, ("mm", i) + key,
-                          lambda i=i: _helmholtz_mm_weights(*key)[i])
-                   for i in range(3))
+    ty, tx, wgt = _mm_operands(h, w, alpha, gamma, power, inverse, x.device)
     xh = ty @ x.float() @ tx.T
     return ty.T @ (xh * wgt) @ tx
 
@@ -110,6 +132,22 @@ def flat(velocity: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
     spec = helmholtz_spectrum(h, w, alpha, gamma, power, velocity.device)
     f = torch.fft.rfft2(velocity.float())
     return torch.fft.irfft2(f * spec, s=(h, w))
+
+
+class FluidMetric:
+    """Bundles (alpha, gamma, power); mirrors lagomorph's FluidMetric object
+    (``cardiax/ops/fluid_metric.py:FluidMetric``)."""
+
+    def __init__(self, alpha: float = 2.0, gamma: float = 1.0, power: int = 2):
+        self.alpha = float(alpha)
+        self.gamma = float(gamma)
+        self.power = int(power)
+
+    def sharp(self, m: torch.Tensor) -> torch.Tensor:
+        return sharp(m, self.alpha, self.gamma, self.power)
+
+    def flat(self, v: torch.Tensor) -> torch.Tensor:
+        return flat(v, self.alpha, self.gamma, self.power)
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,6 +17,17 @@ takes the exact composite path (``ad_star`` and the unclamped gather warp).
 The final image warp ``deform_image`` is kernel K1; its backward is K4 when
 the image is data, else K5 (``warp_kernels``).
 
+``_FUSED_SOLVE = True`` (off by default, under JAX's name and as JAX's
+test/probe hook) folds the solve into the step: every step, step 0
+included, is one launch of K6 (``epdiff_kernels.epdiff_step_solve``) and
+its backward one of K7, on integration grids with both sides at most
+``_MM_MAX_SIDE`` (128); larger grids keep the separate solve. JAX caps the
+lane-packed plane instead (``epdiff_pallas.pack_plan``), so a 128^2 grid
+packs to 256x128 there and takes the separate solve; the port does not
+pack, and both forms compute the same operator, so here 128^2 items take
+the fused solve. ``remat=True`` recomputes each step in the backward
+(``torch.utils.checkpoint``), which changes no value.
+
 There is no ``scan_plan`` or ``warp_plan`` here. The TPU chooses its
 lowering by VMEM size: the fused step only where a plane fits one block,
 else the composite scan of per-op kernels; full-frame, multi-channel or
@@ -31,11 +42,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from cardiax_torch.ops.epdiff_kernels import epdiff_step, grad_hw
-from cardiax_torch.ops.fluid_metric import sharp, spectral_resize
+from cardiax_torch.ops.epdiff_kernels import (epdiff_step, epdiff_step_solve,
+                                              grad_hw)
+from cardiax_torch.ops.fluid_metric import _MM_MAX_SIDE, sharp, spectral_resize
 from cardiax_torch.ops.warp import bilinear_warp, warp_vector_field
 from cardiax_torch.ops.warp_kernels import bilinear_warp_banded_multi
+
+# True runs each Euler step through the fused-solve kernels (module
+# docstring); None/False keeps the separate solve. Read at every call.
+_FUSED_SOLVE: Optional[bool] = None
 
 
 def ad_star(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -59,6 +76,7 @@ def expmap_shooting(m0: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
                     power: int = 2, n_steps: int = 5,
                     warp_radius: Optional[int] = 8,
                     shoot_downsample: int = 1,
+                    remat: bool = False,
                     return_low: bool = False):
     """EPDiff shooting. Returns (u_inv, v0), or (u_inv, v0, u_low_px) with
     ``return_low=True``:
@@ -71,7 +89,9 @@ def expmap_shooting(m0: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
 
     ``shoot_downsample=ds`` integrates on the (H/ds, W/ds) grid with
     alpha/ds^2 and resamples the displacement back spectrally (the metric
-    kills the frequencies the small grid cannot hold).
+    kills the frequencies the small grid cannot hold). ``remat=True``
+    recomputes each Euler step in the backward instead of keeping its
+    activations; as in JAX it does not reach a downsampled integration.
     """
     h_full, w_full = m0.shape[-2:]
     if shoot_downsample > 1 and (h_full % shoot_downsample
@@ -93,17 +113,42 @@ def expmap_shooting(m0: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
     dt = 1.0 / n_steps
     v0 = sharp(m0, alpha, gamma, power)
     m, u_inv = m0, torch.zeros_like(m0)
-    for t in range(n_steps):
-        v = v0 if t == 0 else sharp(m, alpha, gamma, power)
+    if warp_radius is not None and _FUSED_SOLVE \
+            and max(h_full, w_full) <= _MM_MAX_SIDE:
+        radius = min(2, warp_radius)
+
+        def step_solve(m, u_inv):
+            return epdiff_step_solve(m, u_inv, dt, radius, alpha, gamma,
+                                     power)
+
+        step = _remat(step_solve) if remat else step_solve
+        for _ in range(n_steps):
+            m, u_inv = step(m, u_inv)
+    else:
         if warp_radius is None:
-            back = -dt * v
-            u_inv = back + warp_vector_field(u_inv, back)
-            m = m - dt * ad_star(v, m)
+            def step(v, m, u_inv):
+                back = -dt * v
+                return (m - dt * ad_star(v, m),
+                        back + warp_vector_field(u_inv, back))
         else:
-            m, u_inv = epdiff_step(v, m, u_inv, dt, min(2, warp_radius))
+            radius = min(2, warp_radius)
+
+            def step(v, m, u_inv):
+                return epdiff_step(v, m, u_inv, dt, radius)
+        if remat:
+            step = _remat(step)
+        for t in range(n_steps):
+            v = v0 if t == 0 else sharp(m, alpha, gamma, power)
+            m, u_inv = step(v, m, u_inv)
     if return_low:
         return u_inv, v0, None   # integration ran at full resolution
     return u_inv, v0
+
+
+def _remat(step):
+    """``step`` recomputed in the backward instead of saving its
+    activations (JAX's ``jax.checkpoint``)."""
+    return lambda *args: checkpoint(step, *args, use_reentrant=False)
 
 
 def expmap_svf(v: torch.Tensor, n_squarings: int = 4,

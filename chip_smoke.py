@@ -9,13 +9,15 @@ prints no result without CUDA. Phases, one line each:
 1. build: compile every kernel of the paths below from
    ``cardiax_torch/csrc`` (one nvcc per source, in parallel) and print the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. kernels: each kernel (K1, K2 forward; K3, K4, K5 backward) against its
-   plain PyTorch version, with the displacement clamp and the border clip
-   biting, at the flagship shapes and at those of the TPU kernels it stands
-   for (K1/K4 at C = 1 at 384x384 and 768x512 frames; K5 at the in-scan
-   grid of 768x512 frames, the flagship's final warp and 768x512 frames);
-   its time (CUDA events), its byte/operation bound, the plain version's
-   time and, where one exists, one PyTorch call computing the same function;
+2. kernels: each kernel (K1, K2, K6 forward; K3, K4, K5, K7 backward)
+   against its plain PyTorch version, with the displacement clamp and the
+   border clip biting, at the flagship shapes and at those of the TPU
+   kernels it stands for (K1/K4 at C = 1 at 384x384 and 768x512 frames; K5
+   at the in-scan grid of 768x512 frames, the flagship's final warp and
+   768x512 frames; K6/K7 also at 128^2 items, the largest the fused solve
+   takes); its time (CUDA events), its byte/operation bound, the plain
+   version's time and, where one exists, one PyTorch call computing the same
+   function (for K6/K7 the unfused pair of solve and K2/K3 instead);
 3. slice: ``TrainerEngine.test`` over 2 batches (the last one padded) at the
    full width of ``configs/joint.json`` (batch 10, 128^2, T=20, Ts=40, 126
    sectors, 5 Euler steps) with random weights from a seeded generator;
@@ -39,12 +41,17 @@ prints no result without CUDA. Phases, one line each:
    on the 384x256 grid, final-warp radius 12) for 2 epochs: finite losses
    and exact launch counts; then one train step kernel vs plain, the train
    step's host and device time and its peak device memory;
-8. the kernel table as one JSON line, then the result line
+8. solve: with ``cardiax_torch.ops.shooting._FUSED_SOLVE = True``, the
+   train phase's ``main.run`` again (every Euler step through K6/K7, exact
+   launch counts), one train step kernel vs plain, the fused solve vs the
+   separate one on one train step, and the train step's host and device
+   time with each;
+9. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
-train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt`` and
-``DIR/large_train_profile.txt``.
+train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt``,
+``DIR/large_train_profile.txt`` and ``DIR/solve_train_profile.txt``.
 """
 
 from __future__ import annotations
@@ -114,8 +121,8 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
-    print(f"build: mc_warp.cu (K1, K4, K5) + epdiff_step.cu (K2, K3) with "
-          f"nvcc for sm_90a in {secs:.2f} s")
+    print(f"build: mc_warp.cu (K1, K4, K5) + epdiff_step.cu (K2, K3, K6, "
+          f"K7) with nvcc for sm_90a in {secs:.2f} s")
     print(card)
     return card
 
@@ -358,6 +365,135 @@ def check_k3(dev, n=190, h=64, w=64):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+# the flagship's fluid metric on its 64^2 shooting grid: configs/joint.json's
+# alpha 2 over shoot_downsample^2 = 4, gamma 1, power 2
+SOLVE_METRIC = (0.5, 1.0, 2)
+
+
+def solve_fields(seed, n, h, w, dt, r, dev):
+    """(m, u, gm', gu', v) for K6/K7 with v = K m: the in-scan clamp biting
+    and, on the border rows, the clip. The mask and tap tests of K7 are
+    discontinuous at integer values of b = -dt v, and the kernel's v
+    differs from the plain version's (cuBLAS, another summation order) by
+    ~1e-6, so b is drawn at least 0.2 px from every integer (a smooth field
+    with each unit interval squeezed into its middle 60%) and m = L v is
+    solved for it in float64; then no mask or tap can flip between the two."""
+    from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops.fluid_metric import (_helmholtz_mm_weights,
+                                                solve_mm_operands)
+    gen = torch.Generator().manual_seed(seed)
+    b = smooth(gen, (n, 2, h, w), 2.4, "cpu").double()
+    b = torch.floor(b) + 0.2 + 0.6 * (b - torch.floor(b))
+    ty, tx, spec = (torch.from_numpy(a).double() for a in
+                    _helmholtz_mm_weights(h, w, *SOLVE_METRIC, False))
+    m = ty.T @ ((ty @ (-b / dt) @ tx.T) * spec) @ tx
+    m = m.float().contiguous().to(dev)
+    u = smooth(gen, (n, 2, h, w), 2.0, dev)
+    gm = torch.randn((n, 2, h, w), generator=gen).to(dev)
+    gu = torch.randn((n, 2, h, w), generator=gen).to(dev)
+    ops = solve_mm_operands(h, w, *SOLVE_METRIC, dev)
+    v = ek._solve_plain(m, *ops)
+    bk = -dt * v
+    margin = (bk - torch.round(bk)).abs().min().item()
+    require(margin > 0.1, f"K6/K7 fields: b within {margin} of an integer")
+    clamped = (bk.abs() > r - 1).any(dim=1).float().mean().item()
+    ii = torch.arange(h, device=dev).view(1, h, 1).float()
+    cy = ii + bk[:, 0].clamp(-(r - 1), r - 1)
+    clipped = ((cy < 0) | (cy > h - 1)).float().mean().item()
+    require(clamped > 0 and clipped > 0,
+            f"K6/K7 fields at {(n, 2, h, w)}: clamp/clip do not bite")
+    return (m, u, gm, gu, v), ops, (clamped, clipped, margin)
+
+
+def gate(what, outs, refs):
+    """Max |kernel - plain| against 1e-5 of the plain outputs' range; on a
+    failure, the count of elements over the tolerance."""
+    err = max((o - f).abs().max().item() for o, f in zip(outs, refs))
+    tol = 1e-5 * max([1.0] + [f.abs().max().item() for f in refs])
+    if err > tol:
+        over = sum(int(((o - f).abs() > tol).sum().item())
+                   for o, f in zip(outs, refs))
+        raise RuntimeError(f"{what} disagrees with its plain version: {err} "
+                           f"> {tol} at {over} elements")
+    return err, tol
+
+
+def check_k6(dev, n=190, h=64, w=64):
+    """K6 at the flagship's shooting grid, (190, 2, 64, 64), by default;
+    dt 0.2, R=2, the flagship's metric on that grid."""
+    from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops.fluid_metric import sharp
+    dt, r = 0.2, 2
+    (m, u, _, _, _), ops, (clamped, clipped, margin) = solve_fields(
+        60, n, h, w, dt, r, dev)
+    with torch.inference_mode():
+        outs = ek._epdiff_step_solve_cuda(m, u, *ops, dt, r)
+        refs = ek._epdiff_step_solve_plain(m, u, *ops, dt, r)
+        torch.cuda.synchronize()
+        err, tol = gate("K6", outs, refs)
+        ms = time_ms(lambda: ek._epdiff_step_solve_cuda(m, u, *ops, dt, r))
+        plain_ms = time_ms(
+            lambda: ek._epdiff_step_solve_plain(m, u, *ops, dt, r))
+        pair_ms = time_ms(lambda: ek._epdiff_step_cuda(
+            sharp(m, *SOLVE_METRIC), m, u, dt, r))
+    pix = n * h * w
+    bound_ms, bound_by = bound(8 * pix * 4,
+                               2 * 4 * pix * (h + w) + 90 * pix)
+    print(f"K6 epdiff_step_solve_fwd ({n},2,{h},{w}) dt=0.2 R=2 [B11]: "
+          f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), clamped "
+          f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px from "
+          f"an integer, {ms:.4f} ms vs bound {bound_ms:.4f} ms ({bound_by}), "
+          f"plain {plain_ms:.4f} ms, unfused pair sharp + K2 {pair_ms:.4f} "
+          f"ms, no single-call yardstick")
+    return {"name": "epdiff_step_solve_fwd", "route": "cuda",
+            "source": "cardiax_torch/csrc/epdiff_step.cu",
+            "replaces": "cardiax/ops/epdiff_pallas.py:298",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "unfused_pair_ms": pair_ms}
+
+
+def check_k7(dev, n=190, h=64, w=64):
+    """K7 at the flagship's shooting grid, (190, 2, 64, 64), by default;
+    dt 0.2, R=2."""
+    from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops.fluid_metric import sharp
+    dt, r = 0.2, 2
+    (m, u, gm, gu, v), ops, (clamped, clipped, margin) = solve_fields(
+        70, n, h, w, dt, r, dev)
+    outs = ek._epdiff_step_solve_bwd_cuda(m, u, *ops, gm, gu, dt, r)
+    refs = ek._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu, dt, r)
+    torch.cuda.synchronize()
+    err, tol = gate("K7", outs, refs)
+
+    def pair():
+        """the separate solve's backward: K3 on the saved v, then g_m +=
+        K g_v"""
+        g_v, g_m, g_u = ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r)
+        return g_m + sharp(g_v, *SOLVE_METRIC), g_u
+
+    ms = time_ms(lambda: ek._epdiff_step_solve_bwd_cuda(m, u, *ops, gm, gu,
+                                                        dt, r))
+    plain_ms = time_ms(lambda: ek._epdiff_step_solve_bwd_plain(
+        m, u, *ops, gm, gu, dt, r))
+    pair_ms = time_ms(pair)
+    pix = n * h * w
+    bound_ms, bound_by = bound(12 * pix * 4,
+                               4 * 4 * pix * (h + w) + 160 * pix)
+    print(f"K7 epdiff_step_solve_bwd ({n},2,{h},{w}) dt=0.2 R=2 [B12]: "
+          f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), clamped "
+          f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px from "
+          f"an integer, {ms:.4f} ms vs bound {bound_ms:.4f} ms ({bound_by}), "
+          f"plain {plain_ms:.4f} ms, unfused pair K3 + sharp(g_v) + add "
+          f"{pair_ms:.4f} ms, no single-call yardstick")
+    return {"name": "epdiff_step_solve_bwd", "route": "cuda",
+            "source": "cardiax_torch/csrc/epdiff_step.cu",
+            "replaces": "cardiax/ops/epdiff_pallas.py:336",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "unfused_pair_ms": pair_ms}
+
+
 def random_nets(cfg, n_pairs: int, seed: int):
     """The flagship's networks with seeded random weights. JAX
     zero-initialises the momentum head (every warp would be the identity);
@@ -376,23 +512,44 @@ def random_nets(cfg, n_pairs: int, seed: int):
 
 
 def counts(ek, wk):
+    """(K2, K3, K1, K4, K5, K6, K7) launches so far."""
     return (ek.launches, ek.bwd_launches, wk.launches, wk.bwd_launches,
-            wk.fused_bwd_launches)
+            wk.fused_bwd_launches, ek.solve_launches, ek.solve_bwd_launches)
+
+
+def zero_counts(ek, wk):
+    ek.launches = ek.bwd_launches = 0
+    ek.solve_launches = ek.solve_bwd_launches = 0
+    wk.launches = wk.bwd_launches = wk.fused_bwd_launches = 0
+
+
+def named_counts(ek, wk):
+    return dict(zip(("epdiff_step_fwd", "epdiff_step_bwd", "mc_warp_fwd",
+                     "mc_warp_disp_bwd", "mc_warp_fused_bwd",
+                     "epdiff_step_solve_fwd", "epdiff_step_solve_bwd"),
+                    counts(ek, wk)))
 
 
 @contextlib.contextmanager
 def plain_path(sh, ek, wk):
     """The shooting and every banded warp through the plain versions
     (autograd of the plain forwards), so no kernel launches."""
-    saved = sh.epdiff_step, wk.MCWarp
+    from cardiax_torch.ops.fluid_metric import solve_mm_operands
+    saved = sh.epdiff_step, sh.epdiff_step_solve, wk.MCWarp
+
+    def step_solve_plain(m, u, dt, radius, alpha, gamma, power):
+        ops = solve_mm_operands(*m.shape[-2:], alpha, gamma, power, m.device)
+        return ek._epdiff_step_solve_plain(m, u, *ops, dt, radius)
+
     before = counts(ek, wk)
     try:
         sh.epdiff_step = ek._epdiff_step_plain
+        sh.epdiff_step_solve = step_solve_plain
         wk.MCWarp = types.SimpleNamespace(
             apply=lambda f, d, radius: wk._mc_warp_plain(f, d, radius))
         yield
     finally:
-        sh.epdiff_step, wk.MCWarp = saved
+        sh.epdiff_step, sh.epdiff_step_solve, wk.MCWarp = saved
     torch.cuda.synchronize()
     require(counts(ek, wk) == before, "the plain run launched a kernel")
 
@@ -424,11 +581,13 @@ def run_slice(profile_dir):
                   ["n_integration_steps"])
     batch_size = int(cfg["training"]["batch_size"])
     # --- the main path: counts from 0 around engine.test only -------------
-    ek.launches = 0
-    wk.launches = 0
+    zero_counts(ek, wk)
     preds, perf = engine.test({}, {"test": dataset})
     torch.cuda.synchronize()
-    launches = {"epdiff_step_fwd": ek.launches, "mc_warp_fwd": wk.launches}
+    launches = named_counts(ek, wk)
+    require(sum(launches.values()) == launches["epdiff_step_fwd"]
+            + launches["mc_warp_fwd"],
+            f"engine.test launched a kernel other than K1, K2: {launches}")
     n_batches = math.ceil(len(dataset) / batch_size)
     require(n_batches >= 2 and len(dataset) % batch_size != 0,
             "the slice must run >= 2 batches, the last one padded")
@@ -542,12 +701,15 @@ def write_profile(prof, out_dir: Path, kind: str) -> None:
     print(f"profile: {path}")
 
 
-def run_train(tmp: Path):
+def run_train(tmp: Path, label: str = "train"):
     """``cardiax_torch.main.run`` on configs/joint.json at full width, with
-    only the fields printed below changed; launch counts from 0 around it."""
+    only the fields printed below changed; launch counts from 0 around it.
+    With ``shooting._FUSED_SOLVE`` set, the Euler steps take K6/K7 instead
+    of K2/K3."""
     from cardiax_torch import main as port_main
     from cardiax_torch.data.synthetic import make_dataset, save_npy
     from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops import shooting as sh
     from cardiax_torch.ops import warp_kernels as wk
     cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
     t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
@@ -570,41 +732,41 @@ def run_train(tmp: Path):
         for seg in path:
             node = node[seg]
         node[leaf] = val
-    print(f"train: configs/joint.json with {json.dumps(changes)}")
+    print(f"{label}: configs/joint.json with {json.dumps(changes)}")
     epochs = changes["training.epochs"]
     batch_size = int(cfg["training"]["batch_size"])
     n_steps = int(cfg["networks"]["joint_register_strainmat"]
                   ["n_integration_steps"])
-    ek.launches = ek.bwd_launches = 0
-    wk.launches = wk.bwd_launches = wk.fused_bwd_launches = 0
+    zero_counts(ek, wk)
     t0 = time.perf_counter()
     res = port_main.run(cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"mc_warp_fwd": wk.launches, "epdiff_step_fwd": ek.launches,
-                "epdiff_step_bwd": ek.bwd_launches,
-                "mc_warp_disp_bwd": wk.bwd_launches,
-                "mc_warp_fused_bwd": wk.fused_bwd_launches}
+    launches = named_counts(ek, wk)
     train_steps = epochs * math.ceil(25 / batch_size)
     # validation every epoch, then the final val and test evaluations
     eval_batches = epochs + 2
+    fwd, bwd = n_steps * (train_steps + eval_batches), n_steps * train_steps
+    solve = bool(sh._FUSED_SOLVE)
     expect = {"mc_warp_fwd": train_steps + eval_batches,
-              "epdiff_step_fwd": n_steps * (train_steps + eval_batches),
-              "epdiff_step_bwd": n_steps * train_steps,
-              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0}
-    require(launches == expect, f"train launches {launches} != {expect}")
+              "epdiff_step_fwd": 0 if solve else fwd,
+              "epdiff_step_bwd": 0 if solve else bwd,
+              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": fwd if solve else 0,
+              "epdiff_step_solve_bwd": bwd if solve else 0}
+    require(launches == expect, f"{label} launches {launches} != {expect}")
     hist = res["train_loss_dict"]
     for key in ("train/total_loss", "val/total_loss"):
         require(len(hist[key]) == epochs
                 and all(math.isfinite(v) for v in hist[key]),
-                f"{key} per epoch: {hist[key]}")
+                f"{label} {key} per epoch: {hist[key]}")
     perf = {k: v for t in ("val", "test")
             for k, v in res[f"{t}_performance"].items()}
     require(all(math.isfinite(v) for v in perf.values()),
-            f"non-finite metric: {perf}")
+            f"{label}: non-finite metric: {perf}")
     require((tmp / "run" / "model-joint_register_strainmat.pt").is_file(),
-            "the trained model was not saved")
-    print(f"train: main.run {epochs} epochs x {train_steps // epochs} train "
+            f"{label}: the trained model was not saved")
+    print(f"{label}: main.run {epochs} epochs x {train_steps // epochs} train "
           f"steps (last batch padded) + {eval_batches} eval batches in "
           f"{secs:.2f} s; total_loss per epoch train "
           f"{[round(v, 6) for v in hist['train/total_loss']]}, val "
@@ -617,6 +779,26 @@ def grads_of(engine):
     return {f"{n}.{k}": p.grad.detach().clone()
             for n, mod in engine.modules.items()
             for k, p in mod.named_parameters()}
+
+
+def step_gate(label, what, values_a, grads_a, values_b, grads_b):
+    """Two runs of one train step agree: total loss 1e-3 relative, every
+    parameter's gradient 5e-2 relative L2. Returns the summary text."""
+    tl_a, tl_b = values_a["total_loss"].item(), values_b["total_loss"].item()
+    require(abs(tl_a - tl_b) <= 1e-3 * max(1.0, abs(tl_b)),
+            f"{label} total_loss: {what} {tl_a} vs {tl_b}")
+    rel = {}
+    for k, gb in grads_b.items():
+        norm = gb.norm().item()
+        rel[k] = (grads_a[k] - gb).norm().item() / norm if norm > 0 else \
+            grads_a[k].norm().item()
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= 5e-2,
+            f"{label}: gradient of {worst}: {what} relative L2 {rel[worst]}")
+    return (f"{label} {what}: total_loss {tl_a:.6g} vs {tl_b:.6g} (tol 1e-3 "
+            f"rel), gradients of {len(rel)} tensors within relative L2 "
+            f"{rel[worst]:.3e} (worst {worst}; tol 5e-2), median "
+            f"{sorted(rel.values())[len(rel) // 2]:.3e}")
 
 
 def kernel_vs_plain_step(cfg, batch, label):
@@ -643,30 +825,19 @@ def kernel_vs_plain_step(cfg, batch, label):
     n_steps = int(cfg["networks"]["joint_register_strainmat"]
                   ["n_integration_steps"])
     step_counts = tuple(a - b for a, b in zip(counts(ek, wk), before))
-    require(step_counts == (n_steps, n_steps, 1, 1, 0),
-            f"{label}: the kernel train step launched (K2, K3, K1, K4, K5) = "
-            f"{step_counts}, not ({n_steps}, {n_steps}, 1, 1, 0)")
+    expect = (0, 0, 1, 1, 0, n_steps, n_steps) if sh._FUSED_SOLVE \
+        else (n_steps, n_steps, 1, 1, 0, 0, 0)
+    require(step_counts == expect,
+            f"{label}: the kernel train step launched (K2, K3, K1, K4, K5, "
+            f"K6, K7) = {step_counts}, not {expect}")
     with plain_path(sh, ek, wk):
         values_p = engine.backward(arrays)
     grads_p = grads_of(engine)
-    tl_k, tl_p = values_k["total_loss"].item(), values_p["total_loss"].item()
-    require(abs(tl_k - tl_p) <= 1e-3 * max(1.0, abs(tl_p)),
-            f"{label} total_loss: kernel path {tl_k} vs plain {tl_p}")
-    rel = {}
-    for k, gp in grads_p.items():
-        norm = gp.norm().item()
-        rel[k] = (grads_k[k] - gp).norm().item() / norm if norm > 0 else \
-            grads_k[k].norm().item()
-    worst = max(rel, key=rel.get)
-    require(rel[worst] <= 5e-2,
-            f"{label}: gradient of {worst}: kernel vs plain relative L2 "
-            f"{rel[worst]}")
-    print(f"{label} kernel vs plain: total_loss {tl_k:.6g} vs {tl_p:.6g} "
-          f"(tol 1e-3 rel), gradients of {len(rel)} tensors within relative "
-          f"L2 {rel[worst]:.3e} (worst {worst}; tol 5e-2), median "
-          f"{sorted(rel.values())[len(rel) // 2]:.3e}; max|u_inv| "
+    summary = step_gate(label, "kernel vs plain", values_k, grads_k,
+                        values_p, grads_p)
+    print(f"{summary}; max|u_inv| "
           f"{values_k['max_abs_displacement'].item():.3f} px; launches "
-          f"(K2, K3, K1, K4, K5) {step_counts}")
+          f"(K2, K3, K1, K4, K5, K6, K7) {step_counts}")
     return fresh_engine, arrays
 
 
@@ -724,6 +895,66 @@ def run_train_step(profile_dir):
         write_profile(prof, Path(profile_dir), "train")
 
 
+def run_solve(tmp: Path, profile_dir):
+    """The fused-solve path (``shooting._FUSED_SOLVE = True``, restored
+    after): ``main.run`` as in the train phase, with K6/K7 in place of K2/K3;
+    one train step kernel vs plain and fused vs separate solve on the same
+    weights and batch; the train step's host time (turns: separate, fused,
+    fused, separate) and device time with each."""
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.synthetic import make_dataset
+    from cardiax_torch.ops import shooting as sh
+    saved = sh._FUSED_SOLVE
+    sh._FUSED_SOLVE = True
+    try:
+        launches = run_train(tmp, "solve")
+        cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
+        ds_cfg = cfg["datasets"]["train"]
+        t_myo = int(ds_cfg["n_myo_frames_to_use_for_regression"])
+        batch_size = int(cfg["training"]["batch_size"])
+        data = make_dataset(n_subjects=5, slices_per_subject=2, h=128,
+                            w=128, n_frames=t_myo, seed=6)
+        batch = next(iter(Batcher(JointDataset(data, ds_cfg), batch_size)))
+        fresh_engine, arrays = kernel_vs_plain_step(cfg, batch,
+                                                    "solve train step")
+        engine = fresh_engine()
+        values_f = engine.backward(arrays)
+        grads_f = grads_of(engine)
+        sh._FUSED_SOLVE = False
+        values_s = engine.backward(arrays)
+        grads_s = grads_of(engine)
+        sh._FUSED_SOLVE = True
+        print(step_gate("solve train step", "fused vs separate solve",
+                        values_f, grads_f, values_s, grads_s))
+
+        host, busy = {True: [], False: []}, {}
+        for fused in (False, True, True, False):
+            sh._FUSED_SOLVE = fused
+            host[fused].append(step_time_ms(fresh_engine(), arrays))
+        for fused in (False, True):
+            sh._FUSED_SOLVE = fused
+            engine = fresh_engine()
+            busy[fused], prof = profile_steps(
+                lambda: engine.train_step(arrays))
+        sh._FUSED_SOLVE = True
+        if profile_dir:
+            write_profile(prof, Path(profile_dir), "solve_train")
+
+        def ms(fused):
+            b = "not measured" if busy[fused] is None else \
+                f"{busy[fused]:.3f} ms"
+            return (f"host {host[fused][0]:.3f}, {host[fused][1]:.3f} ms "
+                    f"(mean {sum(host[fused]) / 2:.3f}), device busy {b}")
+        print(f"solve train step: step_time_ms fused solve {ms(True)}; "
+              f"separate solve {ms(False)} (batch of {batch_size}, 10 steps "
+              f"after 2 warm-up steps a turn; device busy from the profiler "
+              f"over 3 steps)")
+    finally:
+        sh._FUSED_SOLVE = saved
+    return launches
+
+
 def run_ops():
     """The public ops with field gradients at the flagship's item shape,
     kernels vs plain versions; launch counts from 0 around the kernel run."""
@@ -757,18 +988,15 @@ def run_ops():
                                                             names])))
         return {k: v.detach() for k, v in outs.items()}, grads
 
-    ek.launches = ek.bwd_launches = 0
-    wk.launches = wk.bwd_launches = wk.fused_bwd_launches = 0
+    zero_counts(ek, wk)
     outs_k, grads_k = run()
     torch.cuda.synchronize()
-    launches = {"mc_warp_fwd": wk.launches, "mc_warp_disp_bwd": wk.bwd_launches,
-                "mc_warp_fused_bwd": wk.fused_bwd_launches,
-                "epdiff_step_fwd": ek.launches,
-                "epdiff_step_bwd": ek.bwd_launches}
+    launches = named_counts(ek, wk)
     # expmap_svf: one K1 and one K5 per squaring; compose: one each per
     # channel; deform_image: one each
     expect = {"mc_warp_fwd": 7, "mc_warp_disp_bwd": 0, "mc_warp_fused_bwd": 7,
-              "epdiff_step_fwd": 0, "epdiff_step_bwd": 0}
+              "epdiff_step_fwd": 0, "epdiff_step_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
     require(launches == expect, f"ops launches {launches} != {expect}")
     with plain_path(sh, ek, wk):
         outs_p, grads_p = run()
@@ -837,24 +1065,21 @@ def run_large(tmp: Path, profile_dir):
           f"Ts=16, {n_steps} Euler steps on the {h // 2}x{w // 2} grid, "
           f"final-warp radius 12; 8 synthetic slices (train 4, val 2, "
           f"test 2), {epochs} epochs")
-    ek.launches = ek.bwd_launches = 0
-    wk.launches = wk.bwd_launches = wk.fused_bwd_launches = 0
+    zero_counts(ek, wk)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = port_main.run(cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     run_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {"mc_warp_fwd": wk.launches, "epdiff_step_fwd": ek.launches,
-                "epdiff_step_bwd": ek.bwd_launches,
-                "mc_warp_disp_bwd": wk.bwd_launches,
-                "mc_warp_fused_bwd": wk.fused_bwd_launches}
+    launches = named_counts(ek, wk)
     train_steps = epochs * 2
     eval_batches = epochs + 2      # val each epoch, final val and test
     expect = {"mc_warp_fwd": train_steps + eval_batches,
               "epdiff_step_fwd": n_steps * (train_steps + eval_batches),
               "epdiff_step_bwd": n_steps * train_steps,
-              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0}
+              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
     require(launches == expect, f"large launches {launches} != {expect}")
     hist = res["train_loss_dict"]
     for key in ("train/total_loss", "val/total_loss"):
@@ -893,8 +1118,8 @@ def run_large(tmp: Path, profile_dir):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="directory for profiler tables of the eval, train "
-                         "and large train steps")
+                    help="directory for profiler tables of the eval, train, "
+                         "large train and fused-solve train steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -911,6 +1136,9 @@ def main(argv=None) -> int:
         check_k1(dev, *shape, rows=f"{row} value")
         check_k4(dev, *shape, rows=f"{row} ddy,ddx")
     kernels.append(check_k5_all(dev))
+    kernels += [check_k6(dev), check_k7(dev)]
+    check_k6(dev, 190, 128, 128)      # the largest item the fused solve takes
+    check_k7(dev, 190, 128, 128)
     paths = {"eval": run_slice(args.profile)}
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"] = run_train(Path(tmp))
@@ -918,16 +1146,20 @@ def main(argv=None) -> int:
     paths["ops"] = run_ops()
     with tempfile.TemporaryDirectory() as tmp:
         paths["large"] = run_large(Path(tmp), args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["solve"] = run_solve(Path(tmp), args.profile)
     # launches: K1-K4 from the flagship's training run, K5 from the ops
-    # path (the only one that needs a field gradient); every path's counts
-    # beside them
+    # path (the only one that needs a field gradient), K6/K7 from the
+    # fused-solve run; every path's counts beside them
     main_path = {"mc_warp_fwd": "train", "epdiff_step_fwd": "train",
                  "epdiff_step_bwd": "train", "mc_warp_disp_bwd": "train",
-                 "mc_warp_fused_bwd": "ops"}
+                 "mc_warp_fused_bwd": "ops", "epdiff_step_solve_fwd": "solve",
+                 "epdiff_step_solve_bwd": "solve"}
     rows = {"mc_warp_fwd": ["B3", "B6 value", "B9 value"],
             "epdiff_step_fwd": ["B1"], "epdiff_step_bwd": ["B2"],
             "mc_warp_disp_bwd": ["B4", "B6 ddy/ddx", "B9 ddy/ddx"],
-            "mc_warp_fused_bwd": ["B5", "B7", "B8", "B10"]}
+            "mc_warp_fused_bwd": ["B5", "B7", "B8", "B10"],
+            "epdiff_step_solve_fwd": ["B11"], "epdiff_step_solve_bwd": ["B12"]}
     for k in kernels:
         k["launches"] = paths[main_path[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c.get(k["name"], 0)
@@ -935,8 +1167,8 @@ def main(argv=None) -> int:
         k["rows"] = rows[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rows",
-            "launches_by_path")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+            "launches_by_path", "unfused_pair_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

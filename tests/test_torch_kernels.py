@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1/K2 are the forward warp and EPDiff step, K4/K3 their backward kernels,
-K5 the warp's full backward (d/d field and d/d disp); one test per autograd
-Function checks that a backward through autograd on the card launches its
-kernel.
+K5 the warp's full backward (d/d field and d/d disp), K6/K7 the EPDiff step
+with the fluid-metric solve inside the kernel and its backward; one test
+per autograd Function checks that a backward through autograd on the card
+launches its kernel.
 
 Marked ``gpu``: without a CUDA device each test skips (decided inside the
 fixture, not at import). On a machine with an H100 run
@@ -17,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from cardiax_torch.ops import epdiff_kernels, warp_kernels
+from cardiax_torch.ops import epdiff_kernels, shooting, warp_kernels
+from cardiax_torch.ops.fluid_metric import (_helmholtz_mm_weights,
+                                            solve_mm_operands)
 
 pytestmark = pytest.mark.gpu
 
@@ -148,3 +151,68 @@ def test_autograd_backward_launches_the_kernels(cuda):
     gvp, gmp = torch.autograd.grad(outp.sum() + m1p.sum(), (v2, m2))
     _close(gv, gvp)
     _close(gm, gmp)
+
+
+def _solve_inputs(gen, shape, cuda, metric=(0.5, 1.0, 2)):
+    """m, u, gm', gu' with b = -0.2 K m drawn at least 0.2 px from every
+    integer, where K7's masks and taps are discontinuous (the kernel's v and
+    the plain version's differ in the last bits), the in-scan clamp biting;
+    m = L v solved in float64."""
+    _, _, h, w = shape
+    b = _smooth(gen, shape, 2.4, "cpu").double()
+    b = torch.floor(b) + 0.2 + 0.6 * (b - torch.floor(b))
+    ty, tx, spec = (torch.from_numpy(a).double() for a in
+                    _helmholtz_mm_weights(h, w, *metric, False))
+    m = (ty.T @ ((ty @ (-b / 0.2) @ tx.T) * spec) @ tx).float()
+    assert (b.abs() > 1).any()
+    u = _smooth(gen, shape, 2.0, cuda)
+    gm, gu = (torch.randn(shape, generator=gen).to(cuda) for _ in range(2))
+    return m.contiguous().to(cuda), u.contiguous(), gm, gu, \
+        solve_mm_operands(h, w, *metric, cuda)
+
+
+def test_epdiff_step_solve_kernels_match_plain(cuda):
+    gen = torch.Generator().manual_seed(12)
+    m, u, gm, gu, ops = _solve_inputs(gen, (6, 2, 40, 36), cuda)
+    before = (epdiff_kernels.solve_launches,
+              epdiff_kernels.solve_bwd_launches)
+    with torch.inference_mode():
+        outs = epdiff_kernels.epdiff_step_solve(m, u, 0.2, 2, 0.5, 1.0, 2)
+        refs = epdiff_kernels._epdiff_step_solve_plain(m, u, *ops, 0.2, 2)
+    gouts = epdiff_kernels.epdiff_step_solve_bwd(m, u, *ops, gm, gu, 0.2, 2)
+    grefs = epdiff_kernels._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu,
+                                                        0.2, 2)
+    torch.cuda.synchronize()
+    assert (epdiff_kernels.solve_launches,
+            epdiff_kernels.solve_bwd_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    for out, ref in zip(outs + gouts, refs + grefs):
+        _close(out, ref)
+
+
+def test_epdiff_step_solve_backward_launches_k7_once(cuda):
+    gen = torch.Generator().manual_seed(13)
+    m, u, gm, gu, ops = _solve_inputs(gen, (3, 2, 24, 20), cuda)
+    m, u = m.requires_grad_(), u.requires_grad_()
+    before = epdiff_kernels.solve_bwd_launches
+    mo, uo = epdiff_kernels.epdiff_step_solve(m, u, 0.2, 2, 0.5, 1.0, 2)
+    got = torch.autograd.grad((mo * gm).sum() + (uo * gu).sum(), (m, u))
+    torch.cuda.synchronize()
+    assert epdiff_kernels.solve_bwd_launches == before + 1
+    refs = epdiff_kernels._epdiff_step_solve_bwd_plain(
+        m.detach(), u.detach(), *ops, gm, gu, 0.2, 2)
+    for out, ref in zip(got, refs):
+        _close(out, ref)
+
+
+def test_expmap_shooting_fused_solve_launches_k6(cuda, monkeypatch):
+    monkeypatch.setattr(shooting, "_FUSED_SOLVE", True)
+    gen = torch.Generator().manual_seed(14)
+    m0 = _smooth(gen, (3, 2, 32, 32), 20.0, cuda).contiguous()
+    before = (epdiff_kernels.solve_launches, epdiff_kernels.launches)
+    with torch.inference_mode():
+        u, _ = shooting.expmap_shooting(m0, n_steps=3, warp_radius=8)
+    torch.cuda.synchronize()
+    assert (epdiff_kernels.solve_launches, epdiff_kernels.launches) \
+        == (before[0] + 3, before[1])
+    assert torch.isfinite(u).all()
