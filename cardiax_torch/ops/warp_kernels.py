@@ -191,7 +191,7 @@ def _mc_warp_fused_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
     n, c, h, w = field.shape
     gfield = torch.empty_like(field)
     gdisp = torch.empty_like(disp) if with_disp else None
-    band = torch.empty((n, 2), dtype=torch.int32, device=field.device)
+    band = torch.empty((n, 3), dtype=torch.int32, device=field.device)
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), disp.data_ptr(), g.data_ptr(),
                  gfield.data_ptr(), gdisp.data_ptr() if with_disp else None,

@@ -14,10 +14,14 @@ prints no result without CUDA. Phases, one line each:
    border clip biting, at the flagship shapes and at those of the TPU
    kernels it stands for (K1/K4 at C = 1 at 384x384 and 768x512 frames; K5
    at the in-scan grid of 768x512 frames, the flagship's final warp and
-   768x512 frames; K6/K7 also at 128^2 items, the largest the fused solve
-   takes); its time (CUDA events), its byte/operation bound, the plain
-   version's time and, where one exists, one PyTorch call computing the same
-   function (for K6/K7 the unfused pair of solve and K2/K3 instead);
+   768x512 frames, and at its hard cases: a convergent field, the clip
+   holding whole rows, integer displacements, frames that are no multiple
+   of its tile, with two launches bit-identical; K6/K7 also at 128^2 items,
+   the largest the fused solve takes); its time (CUDA events around 20
+   calls of the wrapper, and its kernels' own device time from the
+   profiler), its byte/operation bound, the plain version's time and, where
+   one exists, one PyTorch call computing the same function, timed both
+   ways (for K6/K7 the unfused pair of solve and K2/K3 instead);
 3. slice: ``TrainerEngine.test`` over 2 batches (the last one padded) at the
    full width of ``configs/joint.json`` (batch 10, 128^2, T=20, Ts=40, 126
    sectors, 5 Euler steps) with random weights from a seeded generator;
@@ -92,6 +96,59 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
+    """Mean device time of ``fn()`` over ``iters`` calls from a
+    ``torch.profiler`` trace: the summed durations of the CUDA kernels whose
+    name contains one of ``names``, or of every device event of the calls
+    when ``names`` is None. A trace whose event count is not the same for
+    every call is taken again once; None (not measured) when the trace
+    holds no device events or no whole number of them a call."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (names is None or any(n in e.name for n in names))]
+        if events and len(events) % iters == 0:
+            return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+    return None
+
+
+def times(fn, names, plain, lib=None, plain_iters: int = 20):
+    """The timing keys of a kernel's entry: ``ms`` (CUDA events around 20
+    calls of its wrapper), ``kernel_ms`` (the device time of its kernels,
+    ``names``, alone), ``plain_ms``, and for the one PyTorch call computing
+    the same function ``library_ms`` and ``library_kernel_ms`` (every
+    device event of the call), None without one."""
+    return {"ms": time_ms(fn), "kernel_ms": device_ms(fn, names),
+            "plain_ms": time_ms(plain, iters=plain_iters,
+                                warmup=3 if plain_iters >= 20 else 1),
+            "library_ms": None if lib is None else time_ms(lib),
+            "library_kernel_ms": None if lib is None else device_ms(lib)}
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def time_text(t, bound_ms, bound_by, lib_name=None) -> str:
+    """The timing part of a check's line."""
+    text = (f"{t['ms']:.4f} ms (kernel alone {fmt_ms(t['kernel_ms'])}) vs "
+            f"bound {bound_ms:.4f} ms ({bound_by}), plain "
+            f"{t['plain_ms']:.4f} ms")
+    if lib_name is None:
+        return text + ", no single-call yardstick"
+    return (text + f", {lib_name} {t['library_ms']:.4f} ms (kernels alone "
+            f"{fmt_ms(t['library_kernel_ms'])})")
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -174,22 +231,20 @@ def check_k1(dev, n=190, c=1, h=128, w=128, r=12, rows="B3"):
         grid = sample_grid(disp, r)
         lib = lambda: grid_sample(img, grid)  # noqa: E731
         lib_err = (lib() - ref).abs().max().item()
-        ms = time_ms(lambda: wk._mc_warp_cuda(img, disp, r))
-        plain_ms = time_ms(lambda: wk._mc_warp_plain(img, disp, r))
-        library_ms = time_ms(lib)
+        t = times(lambda: wk._mc_warp_cuda(img, disp, r),
+                  ["mc_warp_fwd_kernel"],
+                  lambda: wk._mc_warp_plain(img, disp, r), lib)
     pix = n * h * w
     bound_ms, bound_by = bound((2 * c + 2) * pix * 4, (18 + 9 * c) * pix)
     print(f"K1 mc_warp_fwd ({n},{c},{h},{w}) R={r} [{rows}]: max|kernel-"
           f"plain| {err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, clipped "
-          f"{clipped:.3%}, {ms:.4f} ms vs bound {bound_ms:.4f} ms "
-          f"({bound_by}), plain {plain_ms:.4f} ms, grid_sample "
-          f"{library_ms:.4f} ms (max|grid_sample-plain| {lib_err:.2e})")
+          f"{clipped:.3%}, {time_text(t, bound_ms, bound_by, 'grid_sample')}"
+          f" (max|grid_sample-plain| {lib_err:.2e})")
     return {"name": "mc_warp_fwd", "route": "cuda",
             "source": "cardiax_torch/csrc/mc_warp.cu",
             "replaces": "cardiax/ops/warp_pallas.py:350",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t}
 
 
 def check_k2(dev, n=190, h=64, w=64):
@@ -210,19 +265,19 @@ def check_k2(dev, n=190, h=64, w=64):
         err = max((mk - mr).abs().max().item(), (uk - ur).abs().max().item())
         tol = 1e-5 * max(1.0, mr.abs().max().item(), ur.abs().max().item())
         require(err <= tol, f"K2 disagrees with its plain version: {err} > {tol}")
-        ms = time_ms(lambda: ek._epdiff_step_cuda(v, m, u, dt, r))
-        plain_ms = time_ms(lambda: ek._epdiff_step_plain(v, m, u, dt, r))
+        t = times(lambda: ek._epdiff_step_cuda(v, m, u, dt, r),
+                  ["epdiff_step_fwd_kernel"],
+                  lambda: ek._epdiff_step_plain(v, m, u, dt, r))
     pix = n * h * w
     bound_ms, bound_by = bound(10 * pix * 4, 80 * pix)
     print(f"K2 epdiff_step_fwd ({n},2,{h},{w}) dt=0.2 R=2: max|kernel-plain| "
-          f"{err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, {ms:.4f} ms vs "
-          f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-          f"no single-call yardstick")
+          f"{err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, "
+          f"{time_text(t, bound_ms, bound_by)}")
     return {"name": "epdiff_step_fwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:157",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t}
 
 
 def check_k4(dev, n=190, c=1, h=128, w=128, r=12, rows="B4"):
@@ -246,50 +301,70 @@ def check_k4(dev, n=190, c=1, h=128, w=128, r=12, rows="B4"):
     warped = grid_sample(img, grid)
     lib = lambda: torch.autograd.grad(warped, grid, g,  # noqa: E731
                                       retain_graph=True)
-    ms = time_ms(lambda: wk._mc_warp_disp_bwd_cuda(img, disp, g, r))
-    plain_ms = time_ms(lambda: wk._mc_warp_disp_bwd_plain(img, disp, g, r))
-    library_ms = time_ms(lib)
+    t = times(lambda: wk._mc_warp_disp_bwd_cuda(img, disp, g, r),
+              ["mc_warp_disp_bwd_kernel"],
+              lambda: wk._mc_warp_disp_bwd_plain(img, disp, g, r), lib)
     pix = n * h * w
     bound_ms, bound_by = bound((2 * c + 4) * pix * 4, (20 + 16 * c) * pix)
     print(f"K4 mc_warp_disp_bwd ({n},{c},{h},{w}) R={r} [{rows}]: max|kernel-"
           f"plain| {err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, clipped "
-          f"{clipped:.3%}, {ms:.4f} ms vs bound {bound_ms:.4f} ms "
-          f"({bound_by}), plain {plain_ms:.4f} ms, grid_sample grid-grad "
-          f"{library_ms:.4f} ms")
+          f"{clipped:.3%}, "
+          f"{time_text(t, bound_ms, bound_by, 'grid_sample grid-grad')}")
     return {"name": "mc_warp_disp_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/mc_warp.cu",
             "replaces": "cardiax/ops/warp_pallas.py:441",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t}
 
 
-def check_k5(dev, n, c, h, w, r, scale, rows):
+def k5_disp(kind, gen, n, h, w, r, scale, dev):
+    """K5's displacements (n, 2, h, w): ``smooth`` (max |value| ``scale``);
+    ``convergent``, every source pulled to its item's centre (the clamp at
+    r - 1 then lands every source within r - 1 px of it on one coordinate:
+    the longest lists of sources a tap); ``clip``, a smooth shift down and
+    right of 0.3-0.9 (r - 1) px, so the clip holds whole rows and columns on
+    the last row and column (a0 == a1); ``integer``, a smooth field rounded
+    to whole pixels (every fraction 0)."""
+    if kind == "smooth":
+        return smooth(gen, (n, 2, h, w), scale, dev)
+    if kind == "clip":
+        d = smooth(gen, (n, 2, h, w), 0.3 * (r - 1), "cpu") + 0.6 * (r - 1)
+        return d.contiguous().to(dev)
+    if kind == "integer":
+        return torch.round(smooth(gen, (n, 2, h, w), scale, dev))
+    require(kind == "convergent", f"unknown K5 field {kind}")
+    centre = torch.rand((n, 2, 1, 1), generator=gen) - 0.5
+    ii = torch.arange(h).view(1, h, 1).float()
+    jj = torch.arange(w).view(1, 1, w).float()
+    d = torch.stack(torch.broadcast_tensors(
+        (h - 1) / 2 + centre[:, 0] - ii, (w - 1) / 2 + centre[:, 1] - jj),
+        dim=1)
+    return d.contiguous().to(dev)
+
+
+def check_k5(dev, n, c, h, w, r, scale, rows, kind="smooth"):
     """K5 (both outputs) against its plain version at (n, c, h, w) with a
-    displacement of max |value| ``scale`` px."""
+    ``kind`` displacement (``k5_disp``), its repeat bit-identical, and its
+    times."""
     from cardiax_torch.ops import warp_kernels as wk
     gen = torch.Generator().manual_seed(5)
     img = smooth(gen, (n, c, h, w), 1.0, dev)
-    disp = smooth(gen, (n, 2, h, w), scale, dev)
+    disp = k5_disp(kind, gen, n, h, w, r, scale, dev)
     g = torch.randn((n, c, h, w), generator=gen).to(dev)
-    shares = clip_shares(disp, r) if scale > r - 1 else None
-    outs = wk._mc_warp_fused_bwd_cuda(img, disp, g, r)
-    refs = wk._mc_warp_fused_bwd_plain(img, disp, g, r)
-    torch.cuda.synchronize()
-    err = max((o - f).abs().max().item() for o, f in zip(outs, refs))
-    tol = 1e-5 * max([1.0] + [f.abs().max().item() for f in refs])
-    require(err <= tol, f"K5 disagrees with its plain version at "
-            f"{(n, c, h, w)} R={r}: {err} > {tol}")
+    shares = clip_shares(disp, r) if kind == "smooth" and scale > r - 1 \
+        else None
+    err, tol = gate_k5(f"K5 at {(n, c, h, w)} R={r} [{rows}]", img, disp,
+                       g, r)
     # yardstick: grid_sample's gradients w.r.t. the input and the grid
     f = img.clone().requires_grad_()
     grid = sample_grid(disp, r).requires_grad_()
     warped = grid_sample(f, grid)
     lib = lambda: torch.autograd.grad(warped, (f, grid), g,  # noqa: E731
                                       retain_graph=True)
-    ms = time_ms(lambda: wk._mc_warp_fused_bwd_cuda(img, disp, g, r))
-    plain_ms = time_ms(lambda: wk._mc_warp_fused_bwd_plain(img, disp, g, r),
-                       iters=5, warmup=1)
-    library_ms = time_ms(lib)
+    t = times(lambda: wk._mc_warp_fused_bwd_cuda(img, disp, g, r),
+              ["mc_warp_fused_bwd_kernel", "warp_band_kernel"],
+              lambda: wk._mc_warp_fused_bwd_plain(img, disp, g, r), lib,
+              plain_iters=5)
     pix = n * h * w
     # bytes: disp, field and g read, both outputs written; operations: the
     # scatter form's coordinates (~18 flops) and per channel K4's 16 plus
@@ -300,30 +375,65 @@ def check_k5(dev, n, c, h, w, r, scale, rows):
             for a in (0, 1)]
     bite = "" if shares is None else \
         f"clamped {shares[0]:.3%}, clipped {shares[1]:.3%}, "
-    print(f"K5 mc_warp_fused_bwd ({n},{c},{h},{w}) R={r} max|disp| {scale} "
-          f"[{rows}]: max|kernel-plain| {err:.3e} (tol {tol:.1e}), {bite}"
-          f"gather band {band[0]}x{band[1]} (of {r}), {ms:.4f} ms vs bound "
-          f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-          f"grid_sample input+grid grad {library_ms:.4f} ms")
+    print(f"K5 mc_warp_fused_bwd ({n},{c},{h},{w}) R={r} {kind} max|disp| "
+          f"{disp.abs().max().item():.2f} [{rows}]: max|kernel-plain| "
+          f"{err:.3e} (tol {tol:.1e}), repeat bit-identical, {bite}"
+          f"halo band {band[0]}x{band[1]} (of {r}), "
+          f"{time_text(t, bound_ms, bound_by, 'grid_sample input+grid grad')}")
     return {"name": "mc_warp_fused_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/mc_warp.cu",
             "replaces": "cardiax/ops/warp_pallas.py:402",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t}
+
+
+def gate_k5(what, img, disp, g, r):
+    """K5 (both outputs) against its plain version (``gate``), after
+    checking that a second launch on the same inputs gives the same bits."""
+    from cardiax_torch.ops import warp_kernels as wk
+    outs = wk._mc_warp_fused_bwd_cuda(img, disp, g, r)
+    again = wk._mc_warp_fused_bwd_cuda(img, disp, g, r)
+    refs = wk._mc_warp_fused_bwd_plain(img, disp, g, r)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+            f"{what}: two launches on the same inputs differ")
+    return gate(what, outs, refs)
 
 
 def check_k5_all(dev):
     """K5 at the in-scan grid of 768x512 frames (B5's shape on the TPU),
     the ops path's ``expmap_svf`` (C=2, R=8), the flagship's final warp and
-    768x512 frames (B10's), the clamp and clip biting; and at the flagship's
-    final warp with a trained model's displacement (max 1.9 px). Returns
-    the entry at the flagship's warp."""
+    768x512 frames (B10's), the clamp and clip biting; at the flagship's
+    final warp with a trained model's displacement (max 1.9 px); then its
+    hard cases: a convergent field, the clip holding whole rows, integer
+    displacements, frames that are no multiple of the kernel's tile or
+    narrower than a warp, and channel tails. Returns the entry at the
+    flagship's warp."""
     check_k5(dev, 14, 2, 384, 256, 2, 3.0, "B5")
     check_k5(dev, 190, 2, 128, 128, 8, 18.0, "B5, expmap_svf")
     entry = check_k5(dev, 190, 1, 128, 128, 12, 24.0, "B7/B8")
     check_k5(dev, 14, 1, 768, 512, 12, 24.0, "B10")
     check_k5(dev, 190, 1, 128, 128, 12, 1.9, "B7/B8, trained-model band")
+    check_k5(dev, 190, 1, 128, 128, 12, 0.0, "B7/B8, convergent",
+             "convergent")
+    cases = (("convergent", (16, 2, 128, 128), 12, 0.0),
+             ("convergent", (6, 3, 40, 36), 8, 0.0),
+             ("clip", (16, 2, 128, 128), 12, 0.0),
+             ("clip", (4, 3, 20, 12), 12, 0.0),
+             ("integer", (16, 2, 128, 128), 12, 18.0),
+             ("integer", (6, 5, 40, 36), 8, 9.0),
+             ("smooth", (6, 2, 40, 36), 12, 15.0),
+             ("smooth", (4, 3, 20, 12), 12, 15.0),
+             ("smooth", (3, 5, 17, 45), 2, 3.0))
+    gen = torch.Generator().manual_seed(55)
+    for kind, (n, c, h, w), r, scale in cases:
+        img = smooth(gen, (n, c, h, w), 1.0, dev)
+        disp = k5_disp(kind, gen, n, h, w, r, scale, dev)
+        g = torch.randn((n, c, h, w), generator=gen).to(dev)
+        err, tol = gate_k5(f"K5 {kind} at {(n, c, h, w)} R={r}", img,
+                           disp, g, r)
+        print(f"K5 hard case {kind} ({n},{c},{h},{w}) R={r}: max|kernel-"
+              f"plain| {err:.3e} (tol {tol:.1e}), repeat bit-identical")
     return entry
 
 
@@ -349,20 +459,19 @@ def check_k3(dev, n=190, h=64, w=64):
     err = max((o - f).abs().max().item() for o, f in zip(outs, refs))
     tol = 1e-5 * max([1.0] + [f.abs().max().item() for f in refs])
     require(err <= tol, f"K3 disagrees with its plain version: {err} > {tol}")
-    ms = time_ms(lambda: ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r))
-    plain_ms = time_ms(
-        lambda: ek._epdiff_step_bwd_plain(v, m, u, gm, gu, dt, r))
+    t = times(lambda: ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r),
+              ["epdiff_step_bwd_kernel"],
+              lambda: ek._epdiff_step_bwd_plain(v, m, u, gm, gu, dt, r))
     pix = n * h * w
     bound_ms, bound_by = bound(16 * pix * 4, 160 * pix)
     print(f"K3 epdiff_step_bwd ({n},2,{h},{w}) dt=0.2 R=2: max|kernel-plain| "
           f"{err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, clipped "
-          f"{clipped:.3%}, {ms:.4f} ms vs bound {bound_ms:.4f} ms "
-          f"({bound_by}), plain {plain_ms:.4f} ms, no single-call yardstick")
+          f"{clipped:.3%}, {time_text(t, bound_ms, bound_by)}")
     return {"name": "epdiff_step_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:192",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t}
 
 
 # the flagship's fluid metric on its 64^2 shooting grid: configs/joint.json's
@@ -431,26 +540,27 @@ def check_k6(dev, n=190, h=64, w=64):
         refs = ek._epdiff_step_solve_plain(m, u, *ops, dt, r)
         torch.cuda.synchronize()
         err, tol = gate("K6", outs, refs)
-        ms = time_ms(lambda: ek._epdiff_step_solve_cuda(m, u, *ops, dt, r))
-        plain_ms = time_ms(
-            lambda: ek._epdiff_step_solve_plain(m, u, *ops, dt, r))
-        pair_ms = time_ms(lambda: ek._epdiff_step_cuda(
-            sharp(m, *SOLVE_METRIC), m, u, dt, r))
+        t = times(lambda: ek._epdiff_step_solve_cuda(m, u, *ops, dt, r),
+                  ["epdiff_step_solve_fwd_kernel"],
+                  lambda: ek._epdiff_step_solve_plain(m, u, *ops, dt, r))
+        pair = lambda: ek._epdiff_step_cuda(  # noqa: E731
+            sharp(m, *SOLVE_METRIC), m, u, dt, r)
+        pair_ms, pair_kernel_ms = time_ms(pair), device_ms(pair)
     pix = n * h * w
     bound_ms, bound_by = bound(8 * pix * 4,
                                2 * 4 * pix * (h + w) + 90 * pix)
     print(f"K6 epdiff_step_solve_fwd ({n},2,{h},{w}) dt=0.2 R=2 [B11]: "
           f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), clamped "
           f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px from "
-          f"an integer, {ms:.4f} ms vs bound {bound_ms:.4f} ms ({bound_by}), "
-          f"plain {plain_ms:.4f} ms, unfused pair sharp + K2 {pair_ms:.4f} "
-          f"ms, no single-call yardstick")
+          f"an integer, {time_text(t, bound_ms, bound_by)}; unfused pair "
+          f"sharp + K2 {pair_ms:.4f} ms (kernels alone "
+          f"{fmt_ms(pair_kernel_ms)})")
     return {"name": "epdiff_step_solve_fwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:298",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "unfused_pair_ms": pair_ms}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t, "unfused_pair_ms": pair_ms,
+            "unfused_pair_kernel_ms": pair_kernel_ms}
 
 
 def check_k7(dev, n=190, h=64, w=64):
@@ -472,26 +582,27 @@ def check_k7(dev, n=190, h=64, w=64):
         g_v, g_m, g_u = ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r)
         return g_m + sharp(g_v, *SOLVE_METRIC), g_u
 
-    ms = time_ms(lambda: ek._epdiff_step_solve_bwd_cuda(m, u, *ops, gm, gu,
-                                                        dt, r))
-    plain_ms = time_ms(lambda: ek._epdiff_step_solve_bwd_plain(
-        m, u, *ops, gm, gu, dt, r))
-    pair_ms = time_ms(pair)
+    t = times(lambda: ek._epdiff_step_solve_bwd_cuda(m, u, *ops, gm, gu,
+                                                     dt, r),
+              ["epdiff_step_solve_bwd_kernel"],
+              lambda: ek._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu,
+                                                      dt, r))
+    pair_ms, pair_kernel_ms = time_ms(pair), device_ms(pair)
     pix = n * h * w
     bound_ms, bound_by = bound(12 * pix * 4,
                                4 * 4 * pix * (h + w) + 160 * pix)
     print(f"K7 epdiff_step_solve_bwd ({n},2,{h},{w}) dt=0.2 R=2 [B12]: "
           f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), clamped "
           f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px from "
-          f"an integer, {ms:.4f} ms vs bound {bound_ms:.4f} ms ({bound_by}), "
-          f"plain {plain_ms:.4f} ms, unfused pair K3 + sharp(g_v) + add "
-          f"{pair_ms:.4f} ms, no single-call yardstick")
+          f"an integer, {time_text(t, bound_ms, bound_by)}; unfused pair "
+          f"K3 + sharp(g_v) + add {pair_ms:.4f} ms (kernels alone "
+          f"{fmt_ms(pair_kernel_ms)})")
     return {"name": "epdiff_step_solve_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:336",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "unfused_pair_ms": pair_ms}
+            "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+            **t, "unfused_pair_ms": pair_ms,
+            "unfused_pair_kernel_ms": pair_kernel_ms}
 
 
 def random_nets(cfg, n_pairs: int, seed: int):
@@ -1166,8 +1277,9 @@ def main(argv=None) -> int:
                                  for p, c in paths.items()}
         k["rows"] = rows[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "rows",
-            "launches_by_path", "unfused_pair_ms")
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_kernel_ms", "rows", "launches_by_path",
+            "unfused_pair_ms", "unfused_pair_kernel_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {

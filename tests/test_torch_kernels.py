@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1/K2 are the forward warp and EPDiff step, K4/K3 their backward kernels,
-K5 the warp's full backward (d/d field and d/d disp), K6/K7 the EPDiff step
+K5 the warp's full backward (d/d field and d/d disp; also at its hard cases,
+``k5_case``, with two launches bit-identical), K6/K7 the EPDiff step
 with the fluid-metric solve inside the kernel and its backward; one test
 per autograd Function checks that a backward through autograd on the card
 launches its kernel.
@@ -111,6 +112,73 @@ def test_mc_warp_fused_bwd_kernel_matches_plain(cuda, radius):
     out = warp_kernels.bilinear_warp_banded_multi(f, d, radius=radius)
     for got, ref in zip(torch.autograd.grad((out * g).sum(), (f, d)), refs):
         _close(got, ref)
+
+
+def _np_smooth(rng, shape, scale):
+    """A smooth random float32 field with max |value| = scale (a periodic
+    7-tap box blur twice over each axis)."""
+    x = rng.normal(size=shape)
+    for axis in (-2, -1, -2, -1):
+        x = sum(np.roll(x, s, axis=axis) for s in range(-3, 4)) / 7.0
+    return (x / np.abs(x).max() * scale).astype(np.float32)
+
+
+K5_CASES = {
+    # kind: (n, h, w, radius)
+    "convergent": (3, 40, 36, 12),
+    "clip": (3, 40, 36, 12),
+    "integer": (3, 40, 36, 8),
+    "odd40x36": (6, 40, 36, 12),
+    "narrow20x12": (4, 20, 12, 12),
+}
+
+
+def k5_case(kind, channels, seed=0):
+    """(field, disp, g, radius) as float32 numpy for one of K5's hard cases:
+    ``convergent`` (every source pulled to its item's centre: the clamp then
+    lands all sources within radius - 1 px of it on one coordinate, the
+    longest lists of sources a tap), ``clip`` (a smooth shift down and right
+    of 0.3-0.9 (radius - 1) px: the clip holds whole rows and columns on the
+    last row and column, where a0 == a1), ``integer`` (whole-pixel
+    displacements, every fraction 0), and smooth 15 px fields on frames that
+    are no multiple of the kernel's tile or narrower than a warp."""
+    n, h, w, radius = K5_CASES[kind]
+    rng = np.random.default_rng(seed)
+    field = _np_smooth(rng, (n, channels, h, w), 3.0)
+    g = rng.normal(size=(n, channels, h, w)).astype(np.float32)
+    r = radius - 1
+    if kind == "convergent":
+        centre = rng.uniform(-0.5, 0.5, size=(n, 2, 1, 1))
+        ii = np.arange(h).reshape(1, h, 1)
+        jj = np.arange(w).reshape(1, 1, w)
+        disp = np.stack(np.broadcast_arrays(
+            (h - 1) / 2 + centre[:, 0] - ii, (w - 1) / 2 + centre[:, 1] - jj),
+            axis=1)
+    elif kind == "clip":
+        disp = _np_smooth(rng, (n, 2, h, w), 0.3 * r) + 0.6 * r
+    elif kind == "integer":
+        disp = np.round(_np_smooth(rng, (n, 2, h, w), 1.5 * r))
+    else:
+        disp = _np_smooth(rng, (n, 2, h, w), 15.0)
+    return field, disp.astype(np.float32), g, radius
+
+
+@pytest.mark.parametrize("kind,channels",
+                         [(k, 2) for k in K5_CASES] + [("narrow20x12", 3),
+                                                       ("convergent", 5)])
+def test_mc_warp_fused_bwd_kernel_hard_cases(cuda, kind, channels):
+    field, disp, g, radius = (torch.from_numpy(a).to(cuda) if not
+                              isinstance(a, int) else a
+                              for a in k5_case(kind, channels))
+    before = warp_kernels.fused_bwd_launches
+    outs = warp_kernels.mc_warp_fused_bwd(field, disp, g, radius)
+    again = warp_kernels.mc_warp_fused_bwd(field, disp, g, radius)
+    refs = warp_kernels._mc_warp_fused_bwd_plain(field, disp, g, radius)
+    torch.cuda.synchronize()
+    assert warp_kernels.fused_bwd_launches == before + 2
+    for out, rep, ref in zip(outs, again, refs):
+        assert torch.equal(out, rep)
+        _close(out, ref)
 
 
 def test_epdiff_step_bwd_kernel_matches_plain(cuda):
