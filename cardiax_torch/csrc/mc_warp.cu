@@ -15,12 +15,22 @@
 //
 // Bound on the H100: bytes. Each output pixel reads dy, dx and four taps
 // per channel and writes one value per channel, about 14 flops per channel;
-// the minimum traffic is (C + 2) planes read and C planes written. Design:
-// one thread per (n, i, j), consecutive threads on consecutive pixels so the
-// dy/dx loads and the stores coalesce; the displacement and the weights are
-// computed once and reused across the channel loop; the four taps of
-// neighbouring threads overlap, so they hit L1/L2 rather than DRAM. f32
-// arithmetic and accumulation throughout.
+// the minimum traffic is (C + 2) planes read and C planes written.
+//
+// Design: a thread owns 4 consecutive pixels of a row (block 32 x 8: 128
+// columns of 8 rows), the row and the item in the grid's y and z, so no
+// thread divides to find its pixel. The earlier design, one pixel a
+// thread, left two dependent round trips to memory (the displacement, then
+// the taps) with 8 bytes in flight a thread, and moved 1.5-1.6 TB/s. Here
+// a thread loads both displacement planes as float4 where W % 4 == 0
+// (scalar loads otherwise), computes its 4 coordinates, starts all 16 tap
+// loads of a channel before any arithmetic, and stores a float4. The four
+// taps of neighbouring threads overlap, so they hit L1/L2 rather than
+// DRAM. Left to itself ptxas gives it 79 registers (3 blocks an SM); it is
+// capped at 64 (4 blocks), which ran faster at B3's and B9's shapes and
+// slower at B6's on an H100. f32 arithmetic and accumulation, with the
+// clamp, the clip and the tap order of the one-pixel kernel, term for
+// term.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,44 +39,86 @@
 
 namespace {
 
-__global__ void mc_warp_fwd_kernel(const float* __restrict__ img,
-                                   const float* __restrict__ disp,
-                                   float* __restrict__ out,
-                                   int64_t n_pix, int c, int h, int w,
-                                   float r) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_pix) return;
+constexpr int kFwdQuads = 32;      // threads a block along a row
+constexpr int kFwdRows = 8;        // rows a block
+constexpr int kFwdMinBlocks = 4;   // blocks an SM: at most 64 registers
+
+// vec: W % 4 == 0 and disp, out 16-byte aligned (every row is then too)
+__global__ void __launch_bounds__(kFwdQuads * kFwdRows, kFwdMinBlocks)
+mc_warp_fwd_kernel(const float* __restrict__ img,
+                   const float* __restrict__ disp, float* __restrict__ out,
+                   int n_items, int c, int h, int w, float r, bool vec) {
+  const int j0 = 4 * (blockIdx.x * kFwdQuads + threadIdx.x);
+  const int i = blockIdx.y * kFwdRows + threadIdx.y;
+  if (i >= h || j0 >= w) return;
   const int64_t hw = (int64_t)h * w;
-  const int64_t n = idx / hw;
-  const int64_t p = idx - n * hw;
-  const int i = (int)(p / w);
-  const int j = (int)(p - (int64_t)i * w);
-
-  const float* d = disp + n * 2 * hw;
-  const float dy = fminf(fmaxf(d[p], -r), r);
-  const float dx = fminf(fmaxf(d[hw + p], -r), r);
-  const float cy = fminf(fmaxf((float)i + dy, 0.0f), (float)(h - 1));
-  const float cx = fminf(fmaxf((float)j + dx, 0.0f), (float)(w - 1));
-  const float y0 = floorf(cy);
-  const float x0 = floorf(cx);
-  const float fy = cy - y0;
-  const float fx = cx - x0;
-  const int iy0 = (int)y0;
-  const int ix0 = (int)x0;
-  const int iy1 = min(iy0 + 1, h - 1);
-  const int ix1 = min(ix0 + 1, w - 1);
-  const float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
-
-  const float* src = img + n * c * hw;
-  float* dst = out + n * c * hw;
-  for (int ch = 0; ch < c; ++ch, src += hw, dst += hw) {
-    const float* r0 = src + (int64_t)iy0 * w;
-    const float* r1 = src + (int64_t)iy1 * w;
-    // column x0 then column x1, rows y0 then y1: the tap order of the
-    // TPU kernel's band sweep
-    const float col0 = wy0 * __ldg(r0 + ix0) + fy * __ldg(r1 + ix0);
-    const float col1 = wy0 * __ldg(r0 + ix1) + fy * __ldg(r1 + ix1);
-    dst[p] = wx0 * col0 + fx * col1;
+  const int row = i * w;
+  const int nj = min(4, w - j0);
+  for (int n = blockIdx.z; n < n_items; n += gridDim.z) {
+    const float* d = disp + (int64_t)n * 2 * hw + row + j0;
+    float dy[4], dx[4];
+    if (vec) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(d));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(d + hw));
+      dy[0] = a.x; dy[1] = a.y; dy[2] = a.z; dy[3] = a.w;
+      dx[0] = b.x; dx[1] = b.y; dx[2] = b.z; dx[3] = b.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dy[k] = k < nj ? __ldg(d + k) : 0.0f;
+        dx[k] = k < nj ? __ldg(d + hw + k) : 0.0f;
+      }
+    }
+    int o0[4], o1[4], ix0[4], ix1[4];       // row offsets y0, y1; columns
+    float fy[4], fx[4], wy0[4], wx0[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float cdy = fminf(fmaxf(dy[k], -r), r);
+      const float cdx = fminf(fmaxf(dx[k], -r), r);
+      const float cy = fminf(fmaxf((float)i + cdy, 0.0f), (float)(h - 1));
+      const float cx = fminf(fmaxf((float)(j0 + k) + cdx, 0.0f),
+                             (float)(w - 1));
+      const float y0 = floorf(cy);
+      const float x0 = floorf(cx);
+      fy[k] = cy - y0;
+      fx[k] = cx - x0;
+      const int iy0 = (int)y0;
+      ix0[k] = (int)x0;
+      o0[k] = iy0 * w;
+      o1[k] = min(iy0 + 1, h - 1) * w;
+      ix1[k] = min(ix0[k] + 1, w - 1);
+      wy0[k] = 1.0f - fy[k];
+      wx0[k] = 1.0f - fx[k];
+    }
+    for (int ch = 0; ch < c; ++ch) {
+      const float* src = img + ((int64_t)n * c + ch) * hw;
+      float t00[4], t10[4], t01[4], t11[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {          // every tap load first
+        t00[k] = __ldg(src + o0[k] + ix0[k]);
+        t10[k] = __ldg(src + o1[k] + ix0[k]);
+        t01[k] = __ldg(src + o0[k] + ix1[k]);
+        t11[k] = __ldg(src + o1[k] + ix1[k]);
+      }
+      float res[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // column x0 then column x1, rows y0 then y1: the tap order of the
+        // TPU kernel's band sweep
+        const float col0 = wy0[k] * t00[k] + fy[k] * t10[k];
+        const float col1 = wy0[k] * t01[k] + fy[k] * t11[k];
+        res[k] = wx0[k] * col0 + fx[k] * col1;
+      }
+      float* dst = out + ((int64_t)n * c + ch) * hw + row + j0;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(res[0], res[1], res[2], res[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (k < nj) dst[k] = res[k];
+      }
+    }
   }
 }
 
@@ -357,12 +409,15 @@ mc_warp_fused_bwd_kernel(const float* __restrict__ img,
 extern "C" int mc_warp_fwd(const float* img, const float* disp, float* out,
                            int n, int c, int h, int w, int radius,
                            cudaStream_t stream) {
-  const int64_t n_pix = (int64_t)n * h * w;
-  if (n_pix == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n_pix + threads - 1) / threads;
-  mc_warp_fwd_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      img, disp, out, n_pix, c, h, w, (float)(radius - 1));
+  if ((int64_t)n * c * h * w == 0) return (int)cudaSuccess;
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(disp) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int quads = (w + 3) / 4;
+  const dim3 grid((unsigned)((quads + kFwdQuads - 1) / kFwdQuads),
+                  (unsigned)((h + kFwdRows - 1) / kFwdRows),
+                  (unsigned)std::min(n, 65535));
+  mc_warp_fwd_kernel<<<grid, dim3(kFwdQuads, kFwdRows), 0, stream>>>(
+      img, disp, out, n, c, h, w, (float)(radius - 1), vec);
   return (int)cudaGetLastError();
 }
 

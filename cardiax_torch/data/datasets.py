@@ -41,9 +41,18 @@ def _f32(x) -> np.ndarray:
 class JointDataset:
     """Masks + GT strain + TOS for the joint reg+strain+LMA scheme."""
 
-    def __init__(self, data: List[Dict[str, Any]],
-                 dataset_config: Dict[str, Any] | None = None):
+    def __init__(self, data: List[Dict[str, Any]], augmentation=None,
+                 dataset_config: Dict[str, Any] | None = None,
+                 full_config: Dict[str, Any] | None = None,
+                 dataset_name: str | None = None):
+        if augmentation:
+            raise NotImplementedError(
+                "JointDataset: augmentation is not ported yet (ROADMAP A1); "
+                "pass None")
         cfg = dataset_config or {}
+        self.dataset_config = cfg
+        self.full_config = full_config or {}
+        self.dataset_name = dataset_name
         self.data = [copy.copy(d) for d in data]
         self.n_myo_frames = int(cfg.get("n_myo_frames_to_use_for_regression", 20))
         self.n_strainmat_frames = int(cfg.get("n_strainmat_frames_to_use_for_regression", 40))
@@ -100,5 +109,7 @@ def build_datasets(datasets_config: Dict[str, Dict[str, Any]],
         data: List[Dict[str, Any]] = []
         for sn in split_names:
             data.extend(data_splits[sn]["data"])
-        datasets[name] = JointDataset(data, cfg)
+        datasets[name] = JointDataset(data, dataset_config=cfg,
+                                      full_config=full_config,
+                                      dataset_name=name)
     return datasets

@@ -48,9 +48,13 @@ def save_predictions(preds: List[Dict[str, Any]], path: str | Path) -> None:
 
 def save_trained_models(saving_dir: str | Path, models: Dict[str, Any],
                         full_config: Dict[str, Any],
-                        performance: Dict[str, Any] | None = None) -> None:
+                        performance: Dict[str, Any] | None = None,
+                        example_args: Dict[str, tuple] | None = None) -> None:
     """Persist the config, the performance dict and each bundle's module
-    state dict (as CPU tensors) as ``model-{name}.pt``."""
+    state dict (as CPU tensors) as ``model-{name}.pt``. ``example_args``
+    holds the per-model arguments that JAX's compiled formats trace with;
+    those formats are refused (``validate_save_method``), so it is accepted
+    and unused."""
     saving_dir = Path(saving_dir)
     saving_dir.mkdir(parents=True, exist_ok=True)
     with open(saving_dir / "config.json", "w") as f:

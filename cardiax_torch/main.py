@@ -90,7 +90,7 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
     for target in targets:
         if target not in datasets or len(datasets[target]) == 0:
             continue
-        preds, perf = trainer.test(
+        preds, perf, _ = trainer.test(
             models=trained_models, datasets=datasets,
             trainer_config=training, target_dataset=target, tracker=tracker)
         print(json.dumps(perf, indent=2, default=float))

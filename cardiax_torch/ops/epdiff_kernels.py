@@ -227,6 +227,15 @@ def epdiff_step(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
 # K6 + K7: the step with the solve v = K m inside the kernel                   #
 # --------------------------------------------------------------------------- #
 
+def _solve_operands(h: int, w: int, alpha: float, gamma: float, power: int,
+                    device):
+    """(ty, tx, wgt): the three of ``solve_mm_operands``' five that K6/K7
+    take (they read Ty^T and Tx^T as index swaps)."""
+    ty, _, _, tx, wgt = solve_mm_operands(h, w, 1, 1, alpha, gamma, power,
+                                          device=device)
+    return ty, tx, wgt
+
+
 def _solve_plain(x: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
                  wgt: torch.Tensor) -> torch.Tensor:
     """Ty^T [ (Ty x Tx^T) * W ] Tx on each (H, W) plane of x: the four
@@ -353,5 +362,5 @@ def epdiff_step_solve(m: torch.Tensor, u: torch.Tensor, dt: float,
     through the plain versions. Inputs must be contiguous float32."""
     _check_step_inputs("epdiff_step_solve_fwd", radius, m=m, u=u)
     h, w = m.shape[-2:]
-    ty, tx, wgt = solve_mm_operands(h, w, alpha, gamma, power, m.device)
+    ty, tx, wgt = _solve_operands(h, w, alpha, gamma, power, m.device)
     return EPDiffStepSolve.apply(m, u, ty, tx, wgt, dt, radius)

@@ -92,15 +92,22 @@ def _mm_operands(h: int, w: int, alpha: float, gamma: float, power: int,
                  for i in range(3))
 
 
-def solve_mm_operands(h_item: int, w_item: int, alpha: float = 2.0,
-                      gamma: float = 1.0, power: int = 2, device="cpu"):
-    """(ty (H, H), tx (W, W), wgt (H, W)) float32 on ``device``: the
-    operands of the matmul-form solve v = Ty^T [ (Ty m Tx^T) * W ] Tx on one
-    (H, W) item, which the fused-solve EPDiff kernels (K6/K7) run in their
-    own body. JAX's ``solve_mm_operands`` at pr = pc = 1, without its
-    transposed copies: the kernels read Tx^T and Ty^T as index swaps. The
-    TPU's block-diagonal bases for lane-packed planes are not ported."""
-    return _mm_operands(h_item, w_item, alpha, gamma, power, True, device)
+def solve_mm_operands(h_item: int, w_item: int, pr: int = 1, pc: int = 1,
+                      alpha: float = 2.0, gamma: float = 1.0, power: int = 2,
+                      *, device="cpu"):
+    """(ty (H, H), txT (W, W), tyT (H, H), tx (W, W), wgt (H, W)) float32
+    on ``device``: JAX's operands of the matmul-form solve
+    v = Ty^T [ (Ty m Tx^T) * W ] Tx on one (H, W) item. The fused-solve
+    EPDiff kernels (K6/K7) take ``ty``, ``tx`` and ``wgt`` and read the
+    transposes as index swaps. ``pr``/``pc`` > 1 ask for JAX's
+    block-diagonal bases of lane-packed planes, a TPU layout the port does
+    not use, and raise."""
+    if pr != 1 or pc != 1:
+        raise ValueError(f"solve_mm_operands: pr={pr}, pc={pc}: lane-packed "
+                         f"planes are a TPU layout, not ported; use 1, 1")
+    ty, tx, wgt = _mm_operands(h_item, w_item, alpha, gamma, power, True,
+                               device)
+    return ty, tx.T, ty.T, tx, wgt
 
 
 def _helmholtz_mm(x: torch.Tensor, alpha: float, gamma: float, power: int,

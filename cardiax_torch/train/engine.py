@@ -212,12 +212,33 @@ class TrainerEngine:
                        for k, v in module.state_dict().items()}
                 for name, module in self.modules.items()}
 
+    def _check_device(self, device) -> None:
+        """JAX's ``device`` argument: None or the engine's own device (the
+        engine's modules live there since construction)."""
+        if device is None:
+            return
+        want = torch.device(device)
+
+        def index(d):
+            return torch.cuda.current_device() \
+                if d.type == "cuda" and d.index is None else d.index
+        if want.type != self.device.type or index(want) != index(self.device):
+            raise ValueError(f"device={device!r}: this engine runs on "
+                             f"{self.device}; build it with that device")
+
     def train(self, models: Dict[str, Any], datasets: Dict[str, Any],
               trainer_config: Dict[str, Any] | None = None,
-              full_config: Dict[str, Any] | None = None,
-              use_tensorboard: bool = False, use_wandb: bool = False,
+              full_config: Dict[str, Any] | None = None, device=None,
+              use_tensorboard: bool = False,
+              tensorboard_log_dir: str = "tensorboard",
+              use_wandb: bool = False, enable_wandb_upload: bool = True,
               tracker: Optional[MetricsTracker] = None,
               ) -> Tuple[Dict[str, Any], MetricsTracker]:
+        """The synchronous epoch loop; returns (exp_dict, tracker).
+        ``tensorboard_log_dir`` and ``enable_wandb_upload`` are accepted as
+        JAX's and unused there too (the tracker logs to
+        ``saving.saving_dir``)."""
+        self._check_device(device)
         cfg = trainer_config or self.trainer_config
         full = full_config or self.full_config
         others = full.get("others", {}) or {}
@@ -358,12 +379,18 @@ class TrainerEngine:
     # ---- inference ----------------------------------------------------------- #
     def test(self, models: Dict[str, Any], datasets: Dict[str, Any],
              trainer_config: Dict[str, Any] | None = None,
-             target_dataset: str = "test",
+             full_config: Dict[str, Any] | None = None, device=None,
+             wandb_experiment=None, target_dataset: str = "test",
              tracker: Optional[MetricsTracker] = None,
-             ) -> Tuple[List[Dict[str, Any]], Dict[str, float]]:
+             ) -> Tuple[List[Dict[str, Any]], Dict[str, float],
+                        Optional[MetricsTracker]]:
         """Evaluate ``datasets[target_dataset]`` in padded batches: per-sample
         predictions (``<key>_pred``, padding dropped), the scheme's
-        performance and the mean of each loss value over batches."""
+        performance and the mean of each loss value over batches, and the
+        tracker (which logged the performance), as JAX returns them.
+        ``full_config`` and ``wandb_experiment`` are accepted as JAX's and
+        unused there too."""
+        self._check_device(device)
         cfg = trainer_config or self.trainer_config
         batch_size = int(cfg.get("batch_size", 10))
         if not self.modules:
@@ -391,7 +418,7 @@ class TrainerEngine:
             perf[f"final-{target_dataset}/loss_{k}"] = float(v.mean())
         if tracker is not None:
             tracker.log(perf)
-        return preds, perf
+        return preds, perf, tracker
 
 
 def _stack(step_values: List[Dict[str, torch.Tensor]]

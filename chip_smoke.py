@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``cardiax_torch``).
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--baseline DIR]
 
 Needs one CUDA device and ``nvcc``; exits non-zero on any failure and
 prints no result without CUDA. Phases, one line each:
@@ -12,16 +12,19 @@ prints no result without CUDA. Phases, one line each:
 2. kernels: each kernel (K1, K2, K6 forward; K3, K4, K5, K7 backward)
    against its plain PyTorch version, with the displacement clamp and the
    border clip biting, at the flagship shapes and at those of the TPU
-   kernels it stands for (K1/K4 at C = 1 at 384x384 and 768x512 frames; K5
+   kernels it stands for (K1/K4 at C = 1 at 384x384 and 768x512 frames;
+   K1 also at C = 1, 2, 3 on widths that are no multiple of 4; K3 at R = 1,
+   2 and 3, at the in-scan grid of 768x512 frames, at ragged shapes and at
+   runtime radii of 18-70; K5
    at the in-scan grid of 768x512 frames, the flagship's final warp and
    768x512 frames, and at its hard cases: a convergent field, the clip
    holding whole rows, integer displacements, frames that are no multiple
-   of its tile, with two launches bit-identical; K6/K7 also at 128^2 items,
-   the largest the fused solve takes); its time (CUDA events around 20
-   calls of the wrapper, and its kernels' own device time from the
-   profiler), its byte/operation bound, the plain version's time and, where
-   one exists, one PyTorch call computing the same function, timed both
-   ways (for K6/K7 the unfused pair of solve and K2/K3 instead);
+   of its tile; K1, K3 and K5 with two launches bit-identical; K6/K7 also
+   at 128^2 items, the largest the fused solve takes); its time (CUDA
+   events around 20 calls of the wrapper, and its kernels' own device time
+   from the profiler), its byte/operation bound, the plain version's time
+   and, where one exists, one PyTorch call computing the same function,
+   timed both ways (for K6/K7 the unfused pair of solve and K2/K3 instead);
 3. slice: ``TrainerEngine.test`` over 2 batches (the last one padded) at the
    full width of ``configs/joint.json`` (batch 10, 128^2, T=20, Ts=40, 126
    sectors, 5 Euler steps) with random weights from a seeded generator;
@@ -56,6 +59,10 @@ prints no result without CUDA. Phases, one line each:
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
 train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt``,
 ``DIR/large_train_profile.txt`` and ``DIR/solve_train_profile.txt``.
+``--baseline DIR`` builds the kernels of DIR (a checkout of an earlier
+commit, ``git archive``) as well, times each kernel alone in turns with
+this tree's (baseline, this, this, baseline) and says whether K1's and
+K3's outputs are bit-identical to the baseline's.
 """
 
 from __future__ import annotations
@@ -128,12 +135,88 @@ def times(fn, names, plain, lib=None, plain_iters: int = 20):
     calls of its wrapper), ``kernel_ms`` (the device time of its kernels,
     ``names``, alone), ``plain_ms``, and for the one PyTorch call computing
     the same function ``library_ms`` and ``library_kernel_ms`` (every
-    device event of the call), None without one."""
-    return {"ms": time_ms(fn), "kernel_ms": device_ms(fn, names),
-            "plain_ms": time_ms(plain, iters=plain_iters,
-                                warmup=3 if plain_iters >= 20 else 1),
-            "library_ms": None if lib is None else time_ms(lib),
-            "library_kernel_ms": None if lib is None else device_ms(lib)}
+    device event of the call), None without one. With ``--baseline``, the
+    kernel alone is timed in turns baseline, this tree, this tree, baseline
+    (``baseline_kernel_ms``, ``kernel_ms_turns``)."""
+    out = {"ms": time_ms(fn)}
+    if BASELINE:
+        turns = []
+        for base in (True, False, False, True):
+            with baseline_kernels(base):
+                turns.append(device_ms(fn, names))
+        out["kernel_ms"] = mean_or_none(turns[1:3])
+        out["baseline_kernel_ms"] = mean_or_none(turns[0::3])
+        out["kernel_ms_turns"] = turns
+    else:
+        out["kernel_ms"] = device_ms(fn, names)
+    out.update(
+        plain_ms=time_ms(plain, iters=plain_iters,
+                         warmup=3 if plain_iters >= 20 else 1),
+        library_ms=None if lib is None else time_ms(lib),
+        library_kernel_ms=None if lib is None else device_ms(lib))
+    return out
+
+
+def mean_or_none(xs):
+    return None if any(x is None for x in xs) else sum(xs) / len(xs)
+
+
+# ``--baseline DIR``: the libraries built from DIR/cardiax_torch/csrc (a
+# checkout of an earlier commit whose kernels have the same C interface)
+BASELINE: dict = {}
+
+
+def build_baseline(root: Path) -> None:
+    """Compile the baseline's kernels, one nvcc per source, all started
+    together, into ``root/cardiax_torch/_build``, and load them."""
+    import ctypes
+
+    from cardiax_torch.kernels import build
+    out_dir = root / "cardiax_torch" / "_build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("mc_warp", "epdiff_step"):
+        lib = out_dir / f"lib{name}-baseline.so"
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(root / "cardiax_torch" / "csrc" / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"baseline {name}.cu: {log}")
+        BASELINE[name] = ctypes.CDLL(str(lib))
+    print(f"baseline: kernels of {root} built for the before/after times")
+
+
+@contextlib.contextmanager
+def baseline_kernels(on: bool = True):
+    """Inside, every kernel wrapper launches the baseline's kernel."""
+    from cardiax_torch.kernels import build
+    saved = {name: build.load_library(name) for name in BASELINE}
+    try:
+        if on:
+            build._loaded.update(BASELINE)
+        yield
+    finally:
+        build._loaded.update(saved)
+
+
+def same_as_baseline(what, launch, outs) -> str:
+    """The text of a check's comparison with the baseline kernel on the
+    same inputs: bit-identical, or the largest difference."""
+    if not BASELINE:
+        return ""
+    with baseline_kernels():
+        base = launch()
+    torch.cuda.synchronize()
+    base = base if isinstance(base, tuple) else (base,)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if all(torch.equal(a, b) for a, b in zip(outs, base)):
+        return f"; {what} bit-identical to the baseline's"
+    diffs = ", ".join(
+        f"{(a - b).abs().max().item():.3e} at {int((a != b).sum().item())} "
+        f"elements" for a, b in zip(outs, base))
+    return f"; {what} differs from the baseline's by up to [{diffs}]"
 
 
 def fmt_ms(x) -> str:
@@ -142,8 +225,12 @@ def fmt_ms(x) -> str:
 
 def time_text(t, bound_ms, bound_by, lib_name=None) -> str:
     """The timing part of a check's line."""
-    text = (f"{t['ms']:.4f} ms (kernel alone {fmt_ms(t['kernel_ms'])}) vs "
-            f"bound {bound_ms:.4f} ms ({bound_by}), plain "
+    text = (f"{t['ms']:.4f} ms (kernel alone {fmt_ms(t['kernel_ms'])}"
+            + (f"; baseline's kernel alone {fmt_ms(t['baseline_kernel_ms'])},"
+               f" turns baseline, this, this, baseline: "
+               f"{', '.join(fmt_ms(x) for x in t['kernel_ms_turns'])}"
+               if "baseline_kernel_ms" in t else "")
+            + f") vs bound {bound_ms:.4f} ms ({bound_by}), plain "
             f"{t['plain_ms']:.4f} ms")
     if lib_name is None:
         return text + ", no single-call yardstick"
@@ -215,36 +302,66 @@ def grid_sample(img, grid):
 
 def check_k1(dev, n=190, c=1, h=128, w=128, r=12, rows="B3"):
     """K1 at the flagship's final warp, (190, 1, 128, 128), R=12, by
-    default."""
+    default; a second launch on the same inputs must give the same bits."""
     from cardiax_torch.ops import warp_kernels as wk
     gen = torch.Generator().manual_seed(1)
     img = smooth(gen, (n, c, h, w), 1.0, dev)
     disp = smooth(gen, (n, 2, h, w), 24.0, dev)
     clamped, clipped = clip_shares(disp, r)
     with torch.inference_mode():
-        out = wk._mc_warp_cuda(img, disp, r)
+        launch = lambda: wk._mc_warp_cuda(img, disp, r)  # noqa: E731
+        out = launch()
+        again = launch()
         ref = wk._mc_warp_plain(img, disp, r)
         torch.cuda.synchronize()
+        require(torch.equal(out, again),
+                f"K1 at {(n, c, h, w)}: two launches differ")
         err = (out - ref).abs().max().item()
         tol = 1e-5 * max(1.0, ref.abs().max().item())
         require(err <= tol, f"K1 disagrees with its plain version: {err} > {tol}")
+        versus = same_as_baseline("K1", launch, out)
         grid = sample_grid(disp, r)
         lib = lambda: grid_sample(img, grid)  # noqa: E731
         lib_err = (lib() - ref).abs().max().item()
-        t = times(lambda: wk._mc_warp_cuda(img, disp, r),
-                  ["mc_warp_fwd_kernel"],
+        t = times(launch, ["mc_warp_fwd_kernel"],
                   lambda: wk._mc_warp_plain(img, disp, r), lib)
     pix = n * h * w
     bound_ms, bound_by = bound((2 * c + 2) * pix * 4, (18 + 9 * c) * pix)
     print(f"K1 mc_warp_fwd ({n},{c},{h},{w}) R={r} [{rows}]: max|kernel-"
-          f"plain| {err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, clipped "
-          f"{clipped:.3%}, {time_text(t, bound_ms, bound_by, 'grid_sample')}"
-          f" (max|grid_sample-plain| {lib_err:.2e})")
+          f"plain| {err:.3e} (tol {tol:.1e}), repeat bit-identical, clamped "
+          f"{clamped:.3%}, clipped {clipped:.3%}, "
+          f"{time_text(t, bound_ms, bound_by, 'grid_sample')}"
+          f" (max|grid_sample-plain| {lib_err:.2e}){versus}")
     return {"name": "mc_warp_fwd", "route": "cuda",
             "source": "cardiax_torch/csrc/mc_warp.cu",
             "replaces": "cardiax/ops/warp_pallas.py:350",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
             **t}
+
+
+def check_k1_ragged(dev):
+    """K1 at C = 1, 2, 3 on frames whose width is no multiple of 4 (the
+    scalar path) and on one that is (the float4 path), clamp and clip
+    biting, two launches bit-identical."""
+    from cardiax_torch.ops import warp_kernels as wk
+    gen = torch.Generator().manual_seed(11)
+    for n, c, h, w in ((6, 1, 40, 45), (5, 2, 17, 45), (4, 3, 33, 46),
+                       (3, 3, 24, 20)):
+        img = smooth(gen, (n, c, h, w), 1.0, dev)
+        disp = smooth(gen, (n, 2, h, w), 15.0, dev)
+        clip_shares(disp, 12)
+        with torch.inference_mode():
+            out = wk._mc_warp_cuda(img, disp, 12)
+            again = wk._mc_warp_cuda(img, disp, 12)
+            ref = wk._mc_warp_plain(img, disp, 12)
+            torch.cuda.synchronize()
+        require(torch.equal(out, again),
+                f"K1 at {(n, c, h, w)}: two launches differ")
+        err, tol = gate(f"K1 at {(n, c, h, w)}", (out,), (ref,))
+        versus = same_as_baseline(
+            "K1", lambda: wk._mc_warp_cuda(img, disp, 12), out)
+        print(f"K1 ragged ({n},{c},{h},{w}) R=12: max|kernel-plain| "
+              f"{err:.3e} (tol {tol:.1e}), repeat bit-identical{versus}")
 
 
 def check_k2(dev, n=190, h=64, w=64):
@@ -437,13 +554,16 @@ def check_k5_all(dev):
     return entry
 
 
-def check_k3(dev, n=190, h=64, w=64):
-    """K3 at the flagship's shooting grid, (190, 2, 64, 64), by default;
-    dt 0.2, R=2."""
+def check_k3(dev, n=190, h=64, w=64, r=2, rows="B2", timed=True):
+    """K3 at the flagship's shooting grid, (190, 2, 64, 64), dt 0.2, R=2,
+    by default: the clamp biting (and, for R >= 2, the clip; at R = 1 the
+    clamp at 0 leaves every sample on its own pixel), a second launch
+    bit-identical to the first; its times unless not ``timed``."""
     from cardiax_torch.ops import epdiff_kernels as ek
-    dt, r = 0.2, 2
+    dt = 0.2
     gen = torch.Generator().manual_seed(3)
-    v = smooth(gen, (n, 2, h, w), 12.0, dev)     # |dt v| up to 2.4 px
+    # |dt v| up to R + 0.4 px
+    v = smooth(gen, (n, 2, h, w), (r + 0.4) / dt, dev)
     m = smooth(gen, (n, 2, h, w), 3.0, dev)
     u = smooth(gen, (n, 2, h, w), 2.0, dev)
     gm = torch.randn((n, 2, h, w), generator=gen).to(dev)
@@ -452,26 +572,56 @@ def check_k3(dev, n=190, h=64, w=64):
     ii = torch.arange(h, device=dev).view(1, h, 1).float()
     cy = ii + (-dt * v[:, 0]).clamp(-(r - 1), r - 1)
     clipped = ((cy < 0) | (cy > h - 1)).float().mean().item()
-    require(clamped > 0 and clipped > 0, "K3 check: clamp/clip do not bite")
-    outs = ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r)
+    require(clamped > 0 and (clipped > 0 or r == 1),
+            f"K3 check at R={r}: clamp/clip do not bite")
+    launch = lambda: ek._epdiff_step_bwd_cuda(  # noqa: E731
+        v, m, u, gm, gu, dt, r)
+    outs = launch()
+    again = launch()
     refs = ek._epdiff_step_bwd_plain(v, m, u, gm, gu, dt, r)
     torch.cuda.synchronize()
-    err = max((o - f).abs().max().item() for o, f in zip(outs, refs))
-    tol = 1e-5 * max([1.0] + [f.abs().max().item() for f in refs])
-    require(err <= tol, f"K3 disagrees with its plain version: {err} > {tol}")
-    t = times(lambda: ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r),
-              ["epdiff_step_bwd_kernel"],
+    require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+            f"K3 at {(n, 2, h, w)} R={r}: two launches differ")
+    err, tol = gate(f"K3 at {(n, 2, h, w)} R={r}", outs, refs)
+    versus = same_as_baseline("K3", launch, outs)
+    if not timed:
+        print(f"K3 epdiff_step_bwd ({n},2,{h},{w}) dt=0.2 R={r} [{rows}]: "
+              f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), repeat "
+              f"bit-identical, clamped {clamped:.3%}, clipped "
+              f"{clipped:.3%}{versus}")
+        return None
+    # this tree's two kernels, and the baseline's
+    t = times(launch, ["epdiff_step_bwd_tiled", "epdiff_step_bwd_chunked",
+                       "epdiff_step_bwd_kernel"],
               lambda: ek._epdiff_step_bwd_plain(v, m, u, gm, gu, dt, r))
     pix = n * h * w
     bound_ms, bound_by = bound(16 * pix * 4, 160 * pix)
-    print(f"K3 epdiff_step_bwd ({n},2,{h},{w}) dt=0.2 R=2: max|kernel-plain| "
-          f"{err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, clipped "
-          f"{clipped:.3%}, {time_text(t, bound_ms, bound_by)}")
+    print(f"K3 epdiff_step_bwd ({n},2,{h},{w}) dt=0.2 R={r} [{rows}]: "
+          f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), repeat "
+          f"bit-identical, clamped {clamped:.3%}, clipped {clipped:.3%}, "
+          f"{time_text(t, bound_ms, bound_by)}{versus}")
     return {"name": "epdiff_step_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:192",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
             **t}
+
+
+def check_k3_all(dev):
+    """K3 at the flagship's grid at R = 2 (the entry), 1 and 3 (a runtime
+    radius), at the in-scan grid of 768x512 frames, at ragged shapes (the
+    tile's edges, the 4x4 minimum, a 45-px width) and at large runtime
+    radii (sources over several chunks; a radius beyond the plane)."""
+    entry = check_k3(dev)
+    check_k3(dev, r=1, rows="B2, R=1")
+    check_k3(dev, r=3, rows="B2, R=3 (runtime radius)")
+    check_k3(dev, 14, 384, 256, rows="B2, 768x512 frames")
+    for n, h, w, r in ((5, 24, 20, 2), (3, 17, 45, 3), (2, 4, 4, 2),
+                       (1, 40, 36, 1), (4, 20, 12, 6)):
+        check_k3(dev, n, h, w, r, rows="ragged", timed=False)
+    for n, h, w, r in ((4, 64, 64, 18), (2, 64, 64, 40), (2, 20, 12, 70)):
+        check_k3(dev, n, h, w, r, rows="large radius", timed=False)
+    return entry
 
 
 # the flagship's fluid metric on its 64^2 shooting grid: configs/joint.json's
@@ -488,8 +638,7 @@ def solve_fields(seed, n, h, w, dt, r, dev):
     with each unit interval squeezed into its middle 60%) and m = L v is
     solved for it in float64; then no mask or tap can flip between the two."""
     from cardiax_torch.ops import epdiff_kernels as ek
-    from cardiax_torch.ops.fluid_metric import (_helmholtz_mm_weights,
-                                                solve_mm_operands)
+    from cardiax_torch.ops.fluid_metric import _helmholtz_mm_weights
     gen = torch.Generator().manual_seed(seed)
     b = smooth(gen, (n, 2, h, w), 2.4, "cpu").double()
     b = torch.floor(b) + 0.2 + 0.6 * (b - torch.floor(b))
@@ -500,7 +649,7 @@ def solve_fields(seed, n, h, w, dt, r, dev):
     u = smooth(gen, (n, 2, h, w), 2.0, dev)
     gm = torch.randn((n, 2, h, w), generator=gen).to(dev)
     gu = torch.randn((n, 2, h, w), generator=gen).to(dev)
-    ops = solve_mm_operands(h, w, *SOLVE_METRIC, dev)
+    ops = ek._solve_operands(h, w, *SOLVE_METRIC, dev)
     v = ek._solve_plain(m, *ops)
     bk = -dt * v
     margin = (bk - torch.round(bk)).abs().min().item()
@@ -645,11 +794,11 @@ def named_counts(ek, wk):
 def plain_path(sh, ek, wk):
     """The shooting and every banded warp through the plain versions
     (autograd of the plain forwards), so no kernel launches."""
-    from cardiax_torch.ops.fluid_metric import solve_mm_operands
     saved = sh.epdiff_step, sh.epdiff_step_solve, wk.MCWarp
 
     def step_solve_plain(m, u, dt, radius, alpha, gamma, power):
-        ops = solve_mm_operands(*m.shape[-2:], alpha, gamma, power, m.device)
+        ops = ek._solve_operands(*m.shape[-2:], alpha, gamma, power,
+                                 m.device)
         return ek._epdiff_step_solve_plain(m, u, *ops, dt, radius)
 
     before = counts(ek, wk)
@@ -677,7 +826,7 @@ def build_slice(seed: int = 0):
     nets = random_nets(cfg, t_myo - 1, seed)
     data = make_dataset(n_subjects=5, slices_per_subject=3, h=128, w=128,
                         n_frames=t_myo, seed=seed)
-    dataset = JointDataset(data, ds_cfg)
+    dataset = JointDataset(data, dataset_config=ds_cfg)
     engine = build_trainer(cfg["training"], None, cfg)
     engine.setup(nets)
     return cfg, engine, dataset
@@ -693,7 +842,7 @@ def run_slice(profile_dir):
     batch_size = int(cfg["training"]["batch_size"])
     # --- the main path: counts from 0 around engine.test only -------------
     zero_counts(ek, wk)
-    preds, perf = engine.test({}, {"test": dataset})
+    preds, perf, _ = engine.test({}, {"test": dataset})
     torch.cuda.synchronize()
     launches = named_counts(ek, wk)
     require(sum(launches.values()) == launches["epdiff_step_fwd"]
@@ -761,7 +910,8 @@ def run_slice(profile_dir):
           f"{batch_size} slices = {batch_size / step_ms * 1e3:.1f} slices/s")
     if profile_dir:
         busy_ms, prof = profile_steps(lambda: engine.eval_step(arrays))
-        print(f"eval step: {busy_line(busy_ms, step_ms)}")
+        print(f"eval step: {busy_line(busy_ms, step_ms)}"
+              f"{busy_turns(lambda: engine.eval_step(arrays))}")
         write_profile(prof, Path(profile_dir), "eval")
     return launches
 
@@ -792,6 +942,19 @@ def profile_steps(step, reps: int = 3):
             hi = max(hi, end)
     busy += hi - lo
     return busy / reps / 1e3, prof
+
+
+def busy_turns(step) -> str:
+    """With ``--baseline``: the step's device time in turns baseline, this
+    tree, this tree, baseline (``profile_steps`` each)."""
+    if not BASELINE:
+        return ""
+    turns = []
+    for base in (True, False, False, True):
+        with baseline_kernels(base):
+            turns.append(profile_steps(step)[0])
+    return ("; device busy a step in turns baseline, this, this, baseline: "
+            + ", ".join(fmt_ms(t) for t in turns))
 
 
 def busy_line(busy_ms, step_ms: float) -> str:
@@ -977,7 +1140,8 @@ def run_train_step(profile_dir):
     batch_size = int(cfg["training"]["batch_size"])
     data = make_dataset(n_subjects=5, slices_per_subject=2, h=128, w=128,
                         n_frames=t_myo, seed=6)
-    batch = next(iter(Batcher(JointDataset(data, ds_cfg), batch_size)))
+    batch = next(iter(Batcher(JointDataset(data, dataset_config=ds_cfg),
+                              batch_size)))
     fresh_engine, arrays = kernel_vs_plain_step(cfg, batch, "train step")
     engine = fresh_engine()
 
@@ -1002,7 +1166,8 @@ def run_train_step(profile_dir):
           f"{peak_gb:.2f} GB)")
     if profile_dir:
         busy_ms, prof = profile_steps(lambda: engine.train_step(arrays))
-        print(f"train step: {busy_line(busy_ms, step_ms)}")
+        print(f"train step: {busy_line(busy_ms, step_ms)}"
+              f"{busy_turns(lambda: engine.train_step(arrays))}")
         write_profile(prof, Path(profile_dir), "train")
 
 
@@ -1026,7 +1191,8 @@ def run_solve(tmp: Path, profile_dir):
         batch_size = int(cfg["training"]["batch_size"])
         data = make_dataset(n_subjects=5, slices_per_subject=2, h=128,
                             w=128, n_frames=t_myo, seed=6)
-        batch = next(iter(Batcher(JointDataset(data, ds_cfg), batch_size)))
+        batch = next(iter(Batcher(
+            JointDataset(data, dataset_config=ds_cfg), batch_size)))
         fresh_engine, arrays = kernel_vs_plain_step(cfg, batch,
                                                     "solve train step")
         engine = fresh_engine()
@@ -1207,7 +1373,7 @@ def run_large(tmp: Path, profile_dir):
           f"{[round(v, 6) for v in hist['val/total_loss']]}; peak device "
           f"memory {run_peak_gb:.2f} GB; launches {launches}")
 
-    ds = JointDataset(data, cfg["datasets"]["train"])
+    ds = JointDataset(data, dataset_config=cfg["datasets"]["train"])
     batch = next(iter(Batcher(ds, 2)))
     fresh_engine, arrays = kernel_vs_plain_step(cfg, batch,
                                                 "large train step")
@@ -1220,7 +1386,8 @@ def run_large(tmp: Path, profile_dir):
     print(f"large train step: {step_ms:.3f} ms/batch of 2 slices = "
           f"{2 / step_ms * 1e3:.2f} slices/s ({reps} steps after 2 warm-up "
           f"steps, host clock); {busy_line(busy_ms, step_ms)}; peak device "
-          f"memory {peak_gb:.2f} GB")
+          f"memory {peak_gb:.2f} GB"
+          f"{busy_turns(lambda: engine.train_step(arrays))}")
     if profile_dir:
         write_profile(prof, Path(profile_dir), "large_train")
     return launches
@@ -1231,6 +1398,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None,
                     help="directory for profiler tables of the eval, train, "
                          "large train and fused-solve train steps")
+    ap.add_argument("--baseline", default=None,
+                    help="a checkout of an earlier commit whose kernels "
+                         "take the same C arguments: each kernel alone is "
+                         "also timed from its sources, in turns with this "
+                         "tree's, and compared with it bit for bit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1240,12 +1412,15 @@ def main(argv=None) -> int:
     set_numerics()
     dev = torch.device("cuda")
     phase_build()
-    kernels = [check_k1(dev), check_k2(dev), check_k3(dev), check_k4(dev)]
+    if args.baseline:
+        build_baseline(Path(args.baseline).resolve())
+    kernels = [check_k1(dev), check_k2(dev), check_k3_all(dev),
+               check_k4(dev)]
     check_k2(dev, 14, 384, 256)       # the shooting grid of 768x512 frames
-    check_k3(dev, 14, 384, 256)
     for shape, row in (((14, 1, 768, 512), "B9"), ((14, 1, 384, 384), "B6")):
         check_k1(dev, *shape, rows=f"{row} value")
         check_k4(dev, *shape, rows=f"{row} ddy,ddx")
+    check_k1_ragged(dev)
     kernels.append(check_k5_all(dev))
     kernels += [check_k6(dev), check_k7(dev)]
     check_k6(dev, 190, 128, 128)      # the largest item the fused solve takes
@@ -1279,7 +1454,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_kernel_ms", "rows", "launches_by_path",
-            "unfused_pair_ms", "unfused_pair_kernel_ms")
+            "unfused_pair_ms", "unfused_pair_kernel_ms",
+            "baseline_kernel_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {

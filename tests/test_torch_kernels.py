@@ -20,8 +20,7 @@ import pytest
 import torch
 
 from cardiax_torch.ops import epdiff_kernels, shooting, warp_kernels
-from cardiax_torch.ops.fluid_metric import (_helmholtz_mm_weights,
-                                            solve_mm_operands)
+from cardiax_torch.ops.fluid_metric import _helmholtz_mm_weights
 
 pytestmark = pytest.mark.gpu
 
@@ -198,6 +197,62 @@ def test_epdiff_step_bwd_kernel_matches_plain(cuda):
         _close(out, ref)
 
 
+@pytest.mark.parametrize(
+    "shape,radius",
+    [(shape, radius)
+     for shape in [(5, 2, 24, 20), (3, 2, 17, 45), (2, 2, 4, 4),
+                   (190, 2, 64, 64), (1, 2, 40, 36)]
+     for radius in (1, 2, 3)]
+    + [((3, 2, 64, 64), 16), ((2, 2, 64, 64), 20), ((2, 2, 64, 64), 40),
+       ((2, 2, 20, 12), 70)])
+def test_epdiff_step_bwd_kernel_tiles_and_radii(cuda, shape, radius):
+    """K3's tiled kernel at tile edges, the 4x4 minimum and a 45-px width,
+    at the compiled radii 1, 2 and a runtime one (3); its runtime-radius
+    kernel also where a tile's sources span several of its chunks (16-40
+    px) and where the radius exceeds the plane (70 on 20x12). |dt v|
+    reaches radius + 0.4 px, so the clamp bites and, from radius 2, the
+    clip; two launches give the same bits."""
+    gen = torch.Generator().manual_seed(20 + radius)
+    v = _smooth(gen, shape, (radius + 0.4) / 0.2, cuda)
+    m = _smooth(gen, shape, 3.0, cuda)
+    u = _smooth(gen, shape, 2.0, cuda)
+    gm = torch.randn(shape, generator=gen).to(cuda)
+    gu = torch.randn(shape, generator=gen).to(cuda)
+    b = -0.2 * v
+    assert (b.abs() > radius - 1).any()
+    if radius > 1:
+        ii = torch.arange(shape[-2], device=cuda).view(1, -1, 1)
+        cy = ii + b[:, 0].clamp(1 - radius, radius - 1)
+        assert ((cy < 0) | (cy > shape[-2] - 1)).any()
+    outs = epdiff_kernels.epdiff_step_bwd(v, m, u, gm, gu, 0.2, radius)
+    again = epdiff_kernels.epdiff_step_bwd(v, m, u, gm, gu, 0.2, radius)
+    refs = epdiff_kernels._epdiff_step_bwd_plain(v, m, u, gm, gu, 0.2,
+                                                 radius)
+    torch.cuda.synchronize()
+    for out, rep, ref in zip(outs, again, refs):
+        assert torch.equal(out, rep)
+        _close(out, ref)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3])
+@pytest.mark.parametrize("hw", [(40, 45), (24, 20), (17, 46)])
+def test_mc_warp_kernel_ragged_widths(cuda, channels, hw):
+    """K1 on widths that are no multiple of 4 (its scalar path) and on one
+    that is (its float4 path), clamp and clip biting; two launches give the
+    same bits."""
+    gen = torch.Generator().manual_seed(30 + channels)
+    img = _smooth(gen, (4, channels) + hw, 3.0, cuda)
+    disp = _smooth(gen, (4, 2) + hw, 15.0, cuda)
+    assert (disp.abs() > 11).any()
+    with torch.inference_mode():
+        out = warp_kernels.bilinear_warp_banded_multi(img, disp, radius=12)
+        again = warp_kernels.bilinear_warp_banded_multi(img, disp, radius=12)
+        ref = warp_kernels._mc_warp_plain(img, disp, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _close(out, ref)
+
+
 def test_autograd_backward_launches_the_kernels(cuda):
     gen = torch.Generator().manual_seed(9)
     v = _smooth(gen, (3, 2, 16, 16), 6.0, cuda).requires_grad_()
@@ -236,7 +291,7 @@ def _solve_inputs(gen, shape, cuda, metric=(0.5, 1.0, 2)):
     u = _smooth(gen, shape, 2.0, cuda)
     gm, gu = (torch.randn(shape, generator=gen).to(cuda) for _ in range(2))
     return m.contiguous().to(cuda), u.contiguous(), gm, gu, \
-        solve_mm_operands(h, w, *metric, cuda)
+        epdiff_kernels._solve_operands(h, w, *metric, cuda)
 
 
 def test_epdiff_step_solve_kernels_match_plain(cuda):

@@ -41,7 +41,8 @@ def test_rectangular_train_step_matches_jax_on_the_fft_branches(monkeypatch):
     data_cfg = dict(_data_cfg(), n_strainmat_frames_to_use_for_regression=16)
     data = make_dataset(n_subjects=2, slices_per_subject=1, h=48, w=32,
                         n_frames=T_MYO, seed=11)
-    batch = next(iter(Batcher(JointDataset(data, data_cfg), 2)))
+    batch = next(iter(Batcher(JointDataset(data, dataset_config=data_cfg),
+                              2)))
     trainer = _jax_trainer(cfg, batch)
     params = _np_tree(trainer.params)
     head = params["joint_register_strainmat"]["params"]["momentum_unet"]["Conv_0"]

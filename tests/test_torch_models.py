@@ -156,7 +156,8 @@ def eval_step_pair():
     # 3 slices in batches of 2: the second batch is padded (sample_mask 0)
     data = make_dataset(n_subjects=3, slices_per_subject=1, h=H, w=W,
                         n_frames=T_MYO, seed=3)
-    batches = list(Batcher(JointDataset(data, _data_cfg()), 2))
+    batches = list(Batcher(JointDataset(data, dataset_config=_data_cfg()),
+                           2))
     jax_batches = list(JaxBatcher(JaxJointDataset(
         jax_make_dataset(n_subjects=3, slices_per_subject=1, h=H, w=W,
                          n_frames=T_MYO, seed=3), dataset_config=_data_cfg()), 2))
@@ -233,8 +234,8 @@ def test_engine_test_reports_real_samples_only(eval_step_pair):
     cfg = _config()
     data = make_dataset(n_subjects=3, slices_per_subject=1, h=H, w=W,
                         n_frames=T_MYO, seed=3)
-    preds, perf = eng.test({}, {"test": JointDataset(data, _data_cfg())},
-                           cfg["training"])
+    test_set = JointDataset(data, dataset_config=_data_cfg())
+    preds, perf, _ = eng.test({}, {"test": test_set}, cfg["training"])
     assert len(preds) == 3                     # the padded item is dropped
     assert preds[0]["TOS_pred"].shape == (126,)
     total_j = np.mean([float(v["total_loss"]) for v, _ in results])

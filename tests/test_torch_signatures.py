@@ -1,0 +1,191 @@
+"""The port's engine, dataset, export and builders take JAX's parameters.
+
+``tests/test_torch_solve.py::test_port_ops_have_the_jax_signatures`` holds
+every name of ``cardiax_torch.ops`` against ``cardiax.ops``; this file
+extends that to the objects a caller of the engine touches: the same
+parameter names, in the same order, with the same defaults, except for the
+differences made by design listed in ``BY_DESIGN`` with their reasons. The
+behaviour tests check what the repaired signatures return and refuse. All
+run in seconds on the CPU.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import cardiax.data.datasets as jds
+import cardiax.io.export as jexport
+import cardiax.models as jmodels
+import cardiax.ops.fluid_metric as jfm
+import cardiax.train.engine as jengine
+import cardiax_torch.data.datasets as tds
+import cardiax_torch.io.export as texport
+import cardiax_torch.models as tmodels
+import cardiax_torch.ops.fluid_metric as tfm
+import cardiax_torch.train.engine as tengine
+from cardiax_torch.data.synthetic import make_dataset
+from cardiax_torch.io.metrics import MetricsTracker
+from cardiax_torch.train import build_trainer
+
+# (port object, JAX object) by name
+PAIRS = {
+    "TrainerEngine.__init__": (tengine.TrainerEngine.__init__,
+                               jengine.TrainerEngine.__init__),
+    "TrainerEngine.train": (tengine.TrainerEngine.train,
+                            jengine.TrainerEngine.train),
+    "TrainerEngine.test": (tengine.TrainerEngine.test,
+                           jengine.TrainerEngine.test),
+    "Scheme.forward": (tengine.Scheme.forward, jengine.Scheme.forward),
+    "JointDataset.__init__": (tds.JointDataset.__init__,
+                              jds.JointDataset.__init__),
+    "io.export.save_trained_models": (texport.save_trained_models,
+                                      jexport.save_trained_models),
+    "fluid_metric.solve_mm_operands": (tfm.solve_mm_operands,
+                                       jfm.solve_mm_operands),
+    "models.build_model": (tmodels.build_model, jmodels.build_model),
+}
+
+# name -> (JAX parameters the port drops, port parameters JAX lacks, reason)
+BY_DESIGN = {
+    "TrainerEngine.__init__": (
+        {"mesh"}, {"device"},
+        "one card, no mesh (data parallel is ROADMAP A11); the engine's "
+        "device is given at construction, None meaning the card"),
+    "Scheme.forward": (
+        {"params", "train"}, set(),
+        "torch modules hold their parameters and their train/eval mode"),
+    "fluid_metric.solve_mm_operands": (
+        set(), {"device"},
+        "keyword-only: where the operands live; JAX's arrays have no "
+        "device argument"),
+    "models.build_model": (
+        set(), {"n_pairs"},
+        "torch modules are built with their shapes; flax infers the pair "
+        "count at the first call"),
+}
+
+
+def _params(fn):
+    return [(p.name, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_port_takes_the_jax_parameters(name):
+    port, ref = PAIRS[name]
+    dropped, added, _ = BY_DESIGN.get(name, (set(), set(), ""))
+    got = [p for p in _params(port) if p[0] not in added]
+    want = [p for p in _params(ref) if p[0] not in dropped]
+    assert got == want
+    names = [p[0] for p in _params(port)]
+    assert added <= set(names) and not dropped & set(names)
+
+
+def test_solve_mm_operands_device_is_keyword_only():
+    param = inspect.signature(tfm.solve_mm_operands).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_solve_mm_operands_refuses_lane_packing():
+    for pr, pc in ((2, 1), (1, 2)):
+        with pytest.raises(ValueError, match="lane-packed"):
+            tfm.solve_mm_operands(8, 8, pr, pc)
+
+
+def test_solve_mm_operands_positional_metric():
+    """A positional ``pr`` no longer lands on ``alpha``: the metric comes
+    after ``pr, pc``, as in JAX."""
+    port = tfm.solve_mm_operands(8, 6, 1, 1, 0.5, 1.0, 2)
+    ref = jfm.solve_mm_operands(8, 6, 1, 1, 0.5, 1.0, 2)
+    for out, want in zip(port, ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-7,
+                                   rtol=0)
+
+
+T_MYO = 4
+
+
+def _data_cfg():
+    return {"n_myo_frames_to_use_for_regression": T_MYO,
+            "n_strainmat_frames_to_use_for_regression": 8}
+
+
+def test_joint_dataset_takes_augmentation_first():
+    data = make_dataset(n_subjects=2, slices_per_subject=1, h=8, w=8,
+                        n_frames=6, seed=1)
+    by_position = tds.JointDataset(data, None, _data_cfg())
+    by_name = tds.JointDataset(data, dataset_config=_data_cfg())
+    assert len(by_position) == len(by_name) == 2
+    for i in range(2):
+        a, b = by_position[i], by_name[i]
+        assert a.keys() == b.keys()
+        assert a["cine_myo_mask"].shape == (1, T_MYO, 8, 8)
+        for k in ("cine_myo_mask", "strain_matrix", "TOS"):
+            np.testing.assert_array_equal(a[k], b[k])
+    with pytest.raises(NotImplementedError, match="augmentation"):
+        tds.JointDataset(data, {"rotate": 1}, _data_cfg())
+
+
+def _tiny_engine():
+    """The flagship scheme at 16^2, 4 features, on the CPU."""
+    sched = {"enable": True, "type": "CosineAnnealingLR", "T_max": 30,
+             "eta_min": 1e-5}
+    opt = {"type": "Adam", "weight_decay": 1e-4, "learning_rate": 1e-3,
+           "lr_scheduler": sched}
+    cfg = {
+        "networks": {
+            "joint_register_strainmat": {
+                "type": "JointRegisterStrainMatNet",
+                "strainmat_net_type": "ResNet3D",
+                "n_strain_matrix_frames": 8,
+                "strainmat_smoothing_method": "SVD",
+                "strainmat_smoothing_SVD_rank": 5, "n_integration_steps": 2,
+                "alpha": 2.0, "gamma": 1.0, "reg_features": 4,
+                "reg_half_res": False},
+            "LMA": {"type": "NetStrainMat2LMA", "LMA_task": "TOS_regression",
+                    "num_conv_layers": 3, "inner_conv_channel_num": 4,
+                    "n_frames": 8, "n_sectors": 126},
+        },
+        "training": {"scheme": "joint_registration_strainmat_LMA",
+                     "batch_size": 2, "LMA_threshold": 20, "seed": 7,
+                     "epochs": 1,
+                     "optimizers": {"joint_register_strainmat": dict(opt),
+                                    "LMA": dict(opt)}},
+        "losses": {
+            "registration_reconstruction": {
+                "criterion": "registration_reconstruction",
+                "prediction": "various", "target": "registration_target",
+                "weight": 1.0, "sigma": 0.03, "regularization_weight": 0.1,
+                "enable": True},
+            "TOS_regression": {
+                "criterion": "MSELoss", "prediction": "TOS", "target": "TOS",
+                "weight": 0.005, "enable": True}},
+    }
+    data = make_dataset(n_subjects=3, slices_per_subject=1, h=16, w=16,
+                        n_frames=T_MYO, seed=8)
+    datasets = {"test": tds.JointDataset(data, dataset_config=_data_cfg())}
+    nets = {n: tmodels.build_model(mc, n_pairs=T_MYO - 1)
+            for n, mc in cfg["networks"].items()}
+    return build_trainer(cfg["training"], "cpu", cfg), nets, datasets, cfg
+
+
+def test_engine_test_returns_the_tracker_third():
+    eng, nets, datasets, cfg = _tiny_engine()
+    tracker = MetricsTracker(quiet=True)
+    preds, perf, got = eng.test(nets, datasets, cfg["training"], cfg, "cpu",
+                                None, "test", tracker)
+    assert got is tracker
+    assert len(preds) == 3 and np.isfinite(perf["final-test/sector_error"])
+    assert eng.test(nets, datasets)[2] is None
+
+
+def test_engine_refuses_another_device():
+    eng, nets, datasets, cfg = _tiny_engine()
+    other = torch.device("meta")
+    with pytest.raises(ValueError, match="engine runs on cpu"):
+        eng.train(nets, {"train": datasets["test"]}, cfg["training"], cfg,
+                  other)
+    with pytest.raises(ValueError, match="engine runs on cpu"):
+        eng.test(nets, datasets, cfg["training"], cfg, other)

@@ -57,10 +57,9 @@ def _step_inputs(seed, shape, radius, dt=0.2):
     that the in-scan clamp at radius - 1 and the border clip both bite."""
     rng = np.random.default_rng(seed)
     m = _fields(rng, shape, 2.5, 1.0)
-    v = tek._solve_plain(_t(m), *tfm.solve_mm_operands(*shape[-2:], *METRIC))
+    v = tek._solve_plain(_t(m), *_port_operands(*shape[-2:]))
     m = (m * (radius - 0.2) / (dt * v.abs().max().item())).astype(np.float32)
-    b = -dt * tek._solve_plain(_t(m), *tfm.solve_mm_operands(*shape[-2:],
-                                                             *METRIC)).numpy()
+    b = -dt * tek._solve_plain(_t(m), *_port_operands(*shape[-2:])).numpy()
     assert (np.abs(b) > radius - 1).mean() > 0.005
     ii = np.arange(shape[-2])[:, None]
     cy = ii + np.clip(b[:, 0], 1 - radius, radius - 1)
@@ -76,7 +75,7 @@ def _jax_operands(h, w):
 
 
 def _port_operands(h, w):
-    return tfm.solve_mm_operands(h, w, *METRIC)
+    return tek._solve_operands(h, w, *METRIC, "cpu")
 
 
 # --------------------------------------------------------------------------- #
@@ -96,12 +95,15 @@ def test_port_ops_have_the_jax_signatures(name):
 
 @pytest.mark.parametrize("hw", [(24, 24), (16, 32)])
 def test_solve_mm_operands_match_jax(hw):
-    ty, tx, wgt = tfm.solve_mm_operands(*hw, *METRIC)
-    jty, jtxT, jtyT, jtx, jwgt = (np.asarray(a) for a in _jax_operands(*hw))
-    assert ty.shape == (hw[0], hw[0]) and wgt.shape == hw
-    for out, ref in ((ty, jty), (tx, jtx), (wgt, jwgt), (tx.T, jtxT),
-                     (ty.T, jtyT)):
-        np.testing.assert_allclose(out.numpy(), ref, atol=1e-7, rtol=0)
+    """JAX's five operands (ty, txT, tyT, tx, wgt), in JAX's order, from
+    JAX's positional arguments."""
+    port = tfm.solve_mm_operands(*hw, 1, 1, *METRIC)
+    ref = _jax_operands(*hw)
+    assert len(port) == len(ref) == 5
+    for out, want in zip(port, ref):
+        assert tuple(out.shape) == tuple(want.shape)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-7,
+                                   rtol=0)
 
 
 def test_fluid_metric_matches_jax():

@@ -204,7 +204,8 @@ def step_pair():
     cfg = _config()
     data = make_dataset(n_subjects=3, slices_per_subject=1, h=H, w=W,
                         n_frames=T_MYO, seed=3)
-    batch = list(Batcher(JointDataset(data, _data_cfg()), 2))[1]
+    batch = list(Batcher(JointDataset(data, dataset_config=_data_cfg()),
+                         2))[1]
     np.testing.assert_array_equal(batch["sample_mask"], [1.0, 0.0])
     trainer = _jax_trainer(cfg, batch)
     params = _np_tree(trainer.params)
@@ -319,8 +320,8 @@ def _tiny_setup(lr=1e-3, epochs=3, tolerance=50, n=5):
                            optimizers=_optimizers(lr, lr))
     data = make_dataset(n_subjects=n, slices_per_subject=1, h=16, w=16,
                         n_frames=T_MYO, seed=8)
-    datasets = {"train": JointDataset(data[:3], _data_cfg()),
-                "val": JointDataset(data[3:], _data_cfg())}
+    datasets = {"train": JointDataset(data[:3], dataset_config=_data_cfg()),
+                "val": JointDataset(data[3:], dataset_config=_data_cfg())}
     eng = build_trainer(cfg["training"], "cpu", cfg)
     nets = {n: build_model(mc, n_pairs=T_MYO - 1)
             for n, mc in cfg["networks"].items()}
@@ -371,7 +372,8 @@ def test_train_early_stop_at_tolerance_zero():
 def test_shuffle_order_matches_jax_batcher(epoch):
     data = make_dataset(n_subjects=7, slices_per_subject=1, h=16, w=16,
                         n_frames=T_MYO, seed=9)
-    port = Batcher(JointDataset(data, _data_cfg()), 3, shuffle=True, seed=11)
+    port = Batcher(JointDataset(data, dataset_config=_data_cfg()), 3,
+                   shuffle=True, seed=11)
     ref = JaxBatcher(JaxJointDataset(data, dataset_config=_data_cfg()), 3,
                      shuffle=True, seed=11)
     port.set_epoch(epoch)
