@@ -1,15 +1,18 @@
 """Synthetic cine-CMR slices in the reference npy data contract (numpy only).
 
 Copy of ``cardiax/data/synthetic.py`` (``make_slice``, ``make_dataset``,
-``save_npy`` and the slice CLI): per 2D slice ``cine_lv_myo_masks (H,W,T)``
-binary myocardium masks of a contracting annulus whose sectors activate at
-their TOS frame, ``strain_matrix (126,T)``, ``TOS (126,)`` and
-``subject_id``. Write an npy with
+``save_npy``, ``add_displacement_fields``, ``make_registration_pairs`` and
+the CLI): per 2D slice ``cine_lv_myo_masks (H,W,T)`` binary myocardium
+masks of a contracting annulus whose sectors activate at their TOS frame,
+``strain_matrix (126,T)``, ``TOS (126,)`` and ``subject_id``. Write an npy
+with
 
     python -m cardiax_torch.data.synthetic --out data/slices.npy \
         --subjects 10 --slices 3 --size 128 --frames 20
 
-(``--size 768x512`` for H x W frames).
+(``--size 768x512`` for H x W frames; ``--displacements`` attaches DENSE-
+style displacement fields, ``--pairs`` writes the frame pairs of the
+``reg`` scheme instead of slices).
 """
 
 from __future__ import annotations
@@ -84,9 +87,51 @@ def save_npy(path: str, data: List[Dict[str, Any]]) -> None:
     np.save(path, np.array(data, dtype=object), allow_pickle=True)
 
 
+def add_displacement_fields(data: List[Dict[str, Any]], seed: int = 0) -> List[Dict[str, Any]]:
+    """Attach synthetic DENSE-style displacement fields (H,W,T) so the
+    registration-supervision schemes have inputs."""
+    rng = np.random.default_rng(seed)
+    for d in data:
+        h, w, t = d["cine_lv_myo_masks"].shape
+        base = d["cine_lv_myo_masks"]
+        amp = rng.uniform(0.5, 1.5)
+        phase = np.linspace(0, 1, t, dtype=np.float32)
+        d["displacement_field_X"] = (base * amp * phase[None, None, :]).astype(np.float32)
+        d["displacement_field_Y"] = (base * amp * (1 - phase)[None, None, :]).astype(np.float32)
+    return data
+
+
+def make_registration_pairs(data: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Flatten slices into per-frame-pair dicts for BasicRegistrationDataset
+    (Lagrangian: frame 0 vs each later frame with a non-empty mask)."""
+    pairs: List[Dict[str, Any]] = []
+    for si, d in enumerate(data):
+        masks = d["cine_lv_myo_masks"]
+        t = masks.shape[-1]
+        sid = d["subject_id"]
+        for f in range(1, t):
+            if masks[:, :, f].sum() == 0:
+                continue
+            pair = {
+                "source_image": masks[:, :, 0],
+                "target_image": masks[:, :, f],
+                "source_mask": masks[:, :, 0],
+                "target_mask": masks[:, :, f],
+                "TOS": d["TOS"],
+                "strain_matrix": d["strain_matrix"],
+                "subject_id": sid,
+                "slice_full_id": f"{sid}-{si}",
+                "augmented": d.get("augmented", False),
+            }
+            if "displacement_field_X" in d:
+                pair["DENSE_displacement_field_X"] = d["displacement_field_X"][:, :, f]
+                pair["DENSE_displacement_field_Y"] = d["displacement_field_Y"][:, :, f]
+            pairs.append(pair)
+    return pairs
+
+
 def main(argv=None) -> None:
-    """CLI: write a synthetic npy of slices (the displacement-field and
-    pair variants of the JAX CLI come with their schemes, ROADMAP A8)."""
+    """CLI: write a synthetic npy of slices, or of their frame pairs."""
     import argparse
     import os
     p = argparse.ArgumentParser(description="synthetic cine-CMR npy generator")
@@ -97,11 +142,19 @@ def main(argv=None) -> None:
                    help="frame side N, or H x W as 768x512")
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--displacements", action="store_true",
+                   help="attach synthetic DENSE displacement fields")
+    p.add_argument("--pairs", action="store_true",
+                   help="write per-frame-pair dicts (BasicRegistrationDataset)")
     args = p.parse_args(argv)
     h, _, w = args.size.partition("x")
     data = make_dataset(n_subjects=args.subjects, slices_per_subject=args.slices,
                         h=int(h), w=int(w or h), n_frames=args.frames,
                         seed=args.seed)
+    if args.displacements or args.pairs:
+        data = add_displacement_fields(data, seed=args.seed)
+    if args.pairs:
+        data = make_registration_pairs(data)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     save_npy(args.out, data)
     print(f"wrote {len(data)} slices to {args.out}")

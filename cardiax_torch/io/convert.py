@@ -1,9 +1,10 @@
 """flax param trees -> the port's ``state_dict``s.
 
 The tree is the scheme's ``{model_name: {"params": ...}}`` of numpy arrays,
-laid out as ``tests/golden/flagship_param_tree.json`` pins it. Conv kernels
-go HWIO -> OIHW, dense kernels (in, out) -> (out, in), GroupNorm ``scale``
--> ``weight``, and the strain head's ``mix_kernel`` (3F, F), row blocks
+laid out as ``tests/golden/flagship_param_tree.json`` pins it for the
+flagship's two networks (``RegistrationNet``'s is its ``MomentumUNet_0``).
+Conv kernels go HWIO -> OIHW, dense kernels (in, out) -> (out, in),
+GroupNorm ``scale`` -> ``weight``, and the strain head's ``mix_kernel`` (3F, F), row blocks
 [W_p; W_y; W_n] of (in, out), becomes the (out=3F, in=F) matrix of the
 C -> 3F channel product in the ``shiftflat`` order (k-major outputs,
 ``cardiax/models/strain_net.py:113``).
@@ -93,6 +94,11 @@ def joint_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             **strain_head_state_dict(p["strain_head"], "strain_head.")}
 
 
+def registration_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``RegistrationNet`` params -> its port's state_dict."""
+    return unet_state_dict(p["MomentumUNet_0"], "momentum_unet.")
+
+
 def lma_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``NetStrainMat2LMA`` params -> its port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
@@ -113,6 +119,8 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]
         p = variables["params"]
         if "momentum_unet" in p:
             out[name] = joint_state_dict(p)
+        elif "MomentumUNet_0" in p:
+            out[name] = registration_state_dict(p)
         elif "SectorConvBlock_0" in p:
             out[name] = lma_state_dict(p)
         else:

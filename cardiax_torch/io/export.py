@@ -6,7 +6,10 @@ Counterpart of ``cardiax/io/export.py``:
   the same files the JAX package writes;
 * ``save_trained_models``: ``config.json`` + ``performance.json`` + one
   ``model-{name}.pt`` PyTorch state dict per model (the JAX package writes
-  flax msgpack params; reading those is ROADMAP A5).
+  flax msgpack params);
+* ``load_model_params``: one model's state dict from either file, the
+  JAX package's ``model-{name}.msgpack`` (``io.msgpack`` decodes it,
+  ``io.convert`` maps the flax tree) or the port's ``model-{name}.pt``.
 
 The compiled export methods (``jit``, ``onnx``, ``model_zip_state_dict``)
 are not ported (ROADMAP A9) and are refused before training starts.
@@ -20,6 +23,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from cardiax_torch.io.checkpoints import check_like
 
 KNOWN_SAVE_METHODS = ("state_dict", "jit", "onnx", "model_zip_state_dict",
                       "model_zip_state_dict_pt")
@@ -67,3 +72,36 @@ def save_trained_models(saving_dir: str | Path, models: Dict[str, Any],
         state = {k: v.detach().cpu()
                  for k, v in bundle.module.state_dict().items()}
         torch.save(state, saving_dir / f"model-{name}.pt")
+
+
+def _numpy_tree(tree: Any) -> Any:
+    """Decoded msgpack leaves as numpy (floating tensors as float32, which
+    holds bfloat16 exactly)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return (tree.float() if tree.is_floating_point() else tree).numpy()
+    return tree
+
+
+def load_model_params(path: str | Path, template: Any
+                      ) -> Dict[str, torch.Tensor]:
+    """One model's state dict (CPU tensors) from ``path``: a ``.msgpack``
+    that ``flax.serialization.to_bytes`` wrote for the JAX package, or the
+    port's own ``.pt``. ``template`` is the model's ``state_dict()`` (or
+    None); a key or shape that differs from it raises ``ValueError``."""
+    from cardiax_torch.io.convert import params_from_flax
+    from cardiax_torch.io.msgpack import msgpack_restore
+    path = Path(path)
+    if path.suffix == ".msgpack":
+        tree = _numpy_tree(msgpack_restore(path.read_bytes()))
+        state = params_from_flax({path.stem: tree})[path.stem]
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    if template is not None:
+        try:
+            check_like(dict(template), state)
+        except ValueError as e:
+            raise ValueError(f"params in {path} do not match the current "
+                             f"model: {e}") from e
+    return state

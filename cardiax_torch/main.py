@@ -2,31 +2,69 @@
 
 Counterpart of ``cardiax/main.py``: parse args -> load and override the
 config -> ``load_data`` -> ``split_data`` -> ``build_datasets`` ->
-``build_model`` per network -> ``build_trainer`` -> ``train`` -> ``test`` on
-val and test -> ``val_pred.npy`` / ``test_pred.npy`` and the trained models.
-It runs on the card (``device=None``) unless the caller passes
-``device="cpu"``. The TPU lock and the device mesh of the JAX entry point
-have no counterpart. Warm starts and inference-only runs read flax msgpack
-params, which is not ported yet (ROADMAP A5), and raise.
+``build_model`` per network -> ``build_trainer`` -> ``train`` (unless
+``training.inference_only``) -> ``test`` on val and test -> ``val_pred.npy``
+/ ``test_pred.npy`` and the trained models. It runs on the card
+(``device=None``) unless the caller passes ``device="cpu"``.
+
+Saved weights load before training (``training.load_pretrained_model`` with
+``pretrained_model_path``) or in place of it (``inference_only``, from
+``saving.saving_dir``): a directory of ``model-{name}.pt`` (the port's) or
+``model-{name}.msgpack`` (the JAX package's) files, or one such file. The
+TPU lock and the device mesh of the JAX entry point have no counterpart.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 
-def _n_pairs(datasets: Dict[str, Any]) -> int:
+def _n_pairs(datasets: Dict[str, Any]) -> Optional[int]:
     """Frame pairs per slice (T - 1), which size the joint network's strain
-    head: from the first item of the first non-empty dataset."""
+    head: from the first item of the first non-empty dataset (None for
+    items without a mask video)."""
     for ds in datasets.values():
         if len(ds):
-            return int(ds[0]["cine_myo_mask"].shape[1]) - 1
+            item = ds[0]
+            return int(item["cine_myo_mask"].shape[1]) - 1 \
+                if "cine_myo_mask" in item else None
     raise ValueError("every dataset is empty — check the split patterns "
                      "against the data's subject ids")
+
+
+def _saved_model_file(path: Path, name: str) -> Optional[Path]:
+    """``path`` itself if it is a file, else the port's ``model-{name}.pt``
+    in it, else the JAX package's ``model-{name}.msgpack``."""
+    if not path.is_dir():
+        return path if path.exists() else None
+    for suffix in (".pt", ".msgpack"):
+        candidate = path / f"model-{name}{suffix}"
+        if candidate.exists():
+            return candidate
+    return None
+
+
+def _load_params_into(networks: Dict[str, Any], path, seed: int) -> None:
+    """Overwrite each network's weights with its saved ones. Networks
+    without a file keep the weights the engine would draw from ``seed``
+    (the training seed)."""
+    from cardiax_torch.io.export import load_model_params
+    from cardiax_torch.models import init_weights
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, bundle in networks.items():
+        if not bundle.initialized:
+            init_weights(bundle.module, gen)
+            bundle.initialized = True
+        src = _saved_model_file(Path(path), name)
+        if src is not None:
+            bundle.module.load_state_dict(load_model_params(
+                src, bundle.module.state_dict()))
+            print(f"loaded params for {name} from {src}")
 
 
 def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
@@ -38,17 +76,9 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
     from cardiax_torch.models import build_model
     from cardiax_torch.train import build_trainer
 
-    # fail fast on what would only fail at the end of the run, and on what
-    # is not ported
+    # fail fast on what would only fail at the end of the run
     validate_save_method(config.get("saving"))
     training = config["training"]
-    pretrained = training.get("load_pretrained_model", False)
-    if (pretrained and str(pretrained).lower() not in ("false", "f")
-            and training.get("pretrained_model_path")) \
-            or training.get("inference_only", False):
-        raise NotImplementedError(
-            "warm starts and inference-only runs load flax msgpack params, "
-            "which the port does not read yet (ROADMAP A5)")
     trainer = build_trainer(training, device, config)
 
     # 1. data
@@ -70,19 +100,34 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
                 for name, mc in config["networks"].items()}
     print(f"device: {trainer.device}")
 
-    # 4. train
+    # 4. train, from saved weights if asked
     saving = config.get("saving", {})
-    trained_models, tracker = trainer.train(
-        models=networks, datasets=datasets, trainer_config=training,
-        full_config=config,
-        use_wandb=config.get("others", {}).get("use_wandb", False))
+    saving_dir = Path(saving.get("saving_dir", "./test_results"))
+    inference_only = training.get("inference_only", False)
+    pretrained = training.get("load_pretrained_model", False)
+    pre_path = training.get("pretrained_model_path")
+    warm = bool(pretrained and str(pretrained).lower() not in ("false", "f")
+                and pre_path)
+    seed = int(training.get("seed", 2434))
+    if warm:
+        _load_params_into(networks, pre_path, seed)
+    results: Dict[str, Any] = {}
+    tracker = None
+    if not inference_only:
+        trained_models, tracker = trainer.train(
+            models=networks, datasets=datasets, trainer_config=training,
+            full_config=config,
+            use_wandb=config.get("others", {}).get("use_wandb", False))
+        results.update(best_epoch=trained_models["best_epoch"],
+                       train_loss_dict=trained_models["train_loss_dict"])
+    else:
+        # the saved models of saving_dir, unless a warm start loaded some
+        if not warm:
+            _load_params_into(networks, saving_dir, seed)
+        trained_models = {f"{k}_model": v for k, v in networks.items()}
+    results["models"] = trained_models
 
     # 5. inference
-    results: Dict[str, Any] = {"models": trained_models,
-                               "best_epoch": trained_models["best_epoch"],
-                               "train_loss_dict":
-                                   trained_models["train_loss_dict"]}
-    saving_dir = Path(saving.get("saving_dir", "./test_results"))
     extra_targets = tuple(config.get("others", {}).get("final_eval_datasets", ()))
     do_test = training.get("test", True)
     targets = ("val", "test") + extra_targets \
@@ -90,7 +135,7 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
     for target in targets:
         if target not in datasets or len(datasets[target]) == 0:
             continue
-        preds, perf, _ = trainer.test(
+        preds, perf, tracker = trainer.test(
             models=trained_models, datasets=datasets,
             trainer_config=training, target_dataset=target, tracker=tracker)
         print(json.dumps(perf, indent=2, default=float))
@@ -105,7 +150,8 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
         perf_all = {k: v for t in ("val", "test")
                     for k, v in results.get(f"{t}_performance", {}).items()}
         save_trained_models(saving_dir, networks, config, perf_all)
-    tracker.finish()
+    if tracker is not None:
+        tracker.finish()
     return results
 
 

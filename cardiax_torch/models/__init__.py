@@ -1,10 +1,11 @@
 """Model factory: config dict -> ``ModelBundle`` (module + config).
 
-Counterpart of ``cardiax/models/__init__.py:build_model`` for the two
-networks of the flagship scheme, ``JointRegisterStrainMatNet`` and
-``NetStrainMat2LMA``. Other types raise. Unlike flax, PyTorch sizes every
-layer at construction, so the joint network needs ``n_pairs`` (frame pairs
-per slice, T - 1): the caller passes it.
+Counterpart of ``cardiax/models/__init__.py:build_model`` for the networks
+of the ported schemes: ``JointRegisterStrainMatNet`` and
+``NetStrainMat2LMA`` (the flagship) and ``RegistrationNet`` with its alias
+``VoxelmorphLike`` (``reg``). Other types raise. Unlike flax, PyTorch sizes
+every layer at construction, so the joint network needs ``n_pairs`` (frame
+pairs per slice, T - 1): the caller passes it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 from cardiax_torch.models.joint_net import JointRegisterStrainMatNet
 from cardiax_torch.models.layers import Conv, Dense, GroupNorm, lecun_normal_
 from cardiax_torch.models.lma_net import NetStrainMat2LMA
+from cardiax_torch.models.registration import RegistrationNet
 from cardiax_torch.models.strain_net import (ResNet3DStrainHead,
                                              SpatioTemporalBlock)
 from cardiax_torch.models.unet import MomentumUNet
@@ -25,11 +27,13 @@ from cardiax_torch.models.unet import MomentumUNet
 
 @dataclasses.dataclass
 class ModelBundle:
-    """A network module plus the config that built it. ``initialized`` is
-    False until its weights are drawn (``init_weights``) or loaded; the
-    engine initialises such bundles from the training seed."""
+    """A network module plus the config that built it. ``sigma`` is the
+    registration noise scale of the LDDMM energy. ``initialized`` is False
+    until its weights are drawn (``init_weights``) or loaded; the engine
+    initialises such bundles from the training seed."""
     module: nn.Module
     config: Dict[str, Any]
+    sigma: float = 0.03
     initialized: bool = False
 
 
@@ -42,8 +46,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     * the strain head's temporal mix: ``mix_kernel`` ``lecun_normal`` over
       its flax shape (3F, F), so fan_in = 3F (``strain_net.py:77-79``);
       ``mix_bias`` zero;
-    * the momentum head: zero kernel and bias, so shooting starts from the
-      identity (``unet.py:228-232``);
+    * the momentum head of every ``MomentumUNet`` (the joint network's and
+      ``RegistrationNet``'s): zero kernel and bias, so shooting starts from
+      the identity (``unet.py:228-232``);
     * the strain head's frame projection: ``normal(0.02)`` (``:163``).
 
     The streams differ from JAX's, so only the distributions match."""
@@ -68,6 +73,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                               generator)
                 mod.mix_bias.zero_()
     return model
+
+
+def _build_registration(cfg: Dict[str, Any],
+                        n_pairs: Optional[int]) -> ModelBundle:
+    if cfg.get("channel_pack"):
+        raise NotImplementedError("channel_pack is a TPU layout; not ported")
+    module = RegistrationNet(
+        features=int(cfg.get("features", 16)),
+        n_levels=int(cfg.get("n_levels", 3)),
+        alpha=float(cfg.get("alpha", 2.0)),
+        gamma=float(cfg.get("gamma", 1.0)),
+        fluid_power=int(cfg.get("fluid_power", 2)),
+        n_integration_steps=int(cfg.get("n_integration_steps", 5)),
+        shoot_downsample=int(cfg.get("shoot_downsample", 2)),
+        reg_half_res=bool(cfg.get("reg_half_res", True)),
+        final_warp_radius=int(cfg.get("final_warp_radius", 12)),
+        exact_warp=bool(cfg.get("exact_warp", False)),
+    )
+    return ModelBundle(module=module, config=dict(cfg),
+                       sigma=float(cfg.get("sigma", 0.03)))
 
 
 def _build_lma(cfg: Dict[str, Any], n_pairs: Optional[int]) -> ModelBundle:
@@ -108,11 +133,14 @@ def _build_joint_register_strainmat(cfg: Dict[str, Any],
         final_warp_radius=int(cfg.get("final_warp_radius", 12)),
         exact_warp=bool(cfg.get("exact_warp", False)),
     )
-    return ModelBundle(module=module, config=dict(cfg))
+    return ModelBundle(module=module, config=dict(cfg),
+                       sigma=float(cfg.get("sigma", 0.03)))
 
 
 _MODEL_REGISTRY = {
     "NetStrainMat2LMA": _build_lma,
+    "RegistrationNet": _build_registration,
+    "VoxelmorphLike": _build_registration,
     "JointRegisterStrainMatNet": _build_joint_register_strainmat,
 }
 

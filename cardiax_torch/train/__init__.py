@@ -1,7 +1,7 @@
 """Trainer registry: scheme name -> (Scheme, TrainerEngine).
 
-Counterpart of ``cardiax/train/__init__.py:build_trainer``; only the
-flagship scheme is ported, the others raise.
+Counterpart of ``cardiax/train/__init__.py:build_trainer``; the flagship
+scheme and ``reg`` are ported, the others raise.
 """
 
 from __future__ import annotations
@@ -17,7 +17,13 @@ def _joint_reg_strainmat_lma(tc, fc):
     return JointRegisterStrainmatLMAScheme(tc, fc)
 
 
+def _reg(tc, fc):
+    from cardiax_torch.train.schemes.reg import RegScheme
+    return RegScheme(tc, fc)
+
+
 _SCHEME_REGISTRY = {
+    "reg": _reg,
     "joint_registration_strainmat_LMA": _joint_reg_strainmat_lma,
 }
 
@@ -30,9 +36,9 @@ def build_trainer(trainer_config: Dict[str, Any], device=None,
     if name not in _SCHEME_REGISTRY:
         raise NotImplementedError(f"scheme {name!r} is not ported yet; "
                                   f"ported: {sorted(_SCHEME_REGISTRY)}")
-    scheme = _SCHEME_REGISTRY[name](trainer_config, full_config or {})
-    return TrainerEngine(scheme, trainer_config, full_config or {},
-                         device=device)
+    full = full_config if full_config is not None else {}
+    scheme = _SCHEME_REGISTRY[name](trainer_config, full)
+    return TrainerEngine(scheme, trainer_config, full, device=device)
 
 
 __all__ = ["build_trainer", "TrainerEngine", "Scheme"]

@@ -15,16 +15,22 @@ contract and the TOS metrics) and ``TrainerEngine``:
   the non-finite spot check and the banded-warp saturation warning);
 * ``eval_step`` / ``test``: values and per-sample predictions.
 
-JAX's device-resident cache, fused epochs and epoch pipelining give the same
-values as its synchronous loop; here ``auto``/false selects the synchronous
-loop and ``true`` raises (ROADMAP A10). Checkpoints, the profiler trace and
-periodic figures raise (ROADMAP A9).
+``train`` also takes a checkpoint of the whole training state after each
+epoch's early-stop update (``saving.save_checkpoint``, ``io.checkpoints``),
+resumes from the latest one exactly (``training.resume``), and draws the
+periodic figure of the first val batch (``others.wandb_visualize_interval``,
+``Scheme.visualize``). JAX's device-resident cache, fused epochs and epoch
+pipelining give the same values as its synchronous loop; here
+``auto``/false selects the synchronous loop and ``true`` raises (ROADMAP
+A10). The profiler trace raises (ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import json
 import time
 import warnings
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +38,7 @@ import torch
 
 from cardiax_torch.data.loader import Batcher
 from cardiax_torch.device import resolve_device
+from cardiax_torch.io.checkpoints import CheckpointManager
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.losses.calculator import LossCalculator
 from cardiax_torch.models import init_weights
@@ -60,6 +67,35 @@ class Scheme:
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         raise NotImplementedError
+
+    def visualize(self, batch: Dict[str, Any], preds_np: Dict[str, Any],
+                  out_path) -> Optional[str]:
+        """The periodic training-time figure: the strain matrix with the GT
+        and predicted TOS overlaid, when the batch has both, else None.
+        Returns the saved path."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from cardiax_torch.plot.strainmat import visualize_strainmat_with_TOS
+        strain = None
+        for key in ("strain_matrix", "strain_mat", "strainmat"):
+            if key in batch and hasattr(batch[key], "ndim"):
+                strain = np.asarray(batch[key][0])
+                break
+            if key in preds_np and hasattr(preds_np[key], "ndim"):
+                strain = np.asarray(preds_np[key][0])
+                break
+        if strain is None or "TOS" not in batch:
+            return None
+        tos_gt = np.asarray(batch["TOS"][0])
+        tos_pred = np.asarray(preds_np["TOS"][0]) if "TOS" in preds_np \
+            else None
+        fig, _ = visualize_strainmat_with_TOS(strain, tos_gt=tos_gt,
+                                              tos_pred=tos_pred)
+        fig.savefig(out_path, dpi=90)
+        plt.close(fig)
+        return str(out_path)
 
     def performance(self, preds: List[Dict[str, Any]], dataset_name: str
                     ) -> Dict[str, float]:
@@ -115,6 +151,7 @@ class TrainerEngine:
         self.modules: Dict[str, torch.nn.Module] = {}
         self.optimizers: Dict[str, Tuple[torch.optim.Optimizer, Any]] = {}
         self._warned_disp_band = False
+        self._warned_visualization = False
         # the banded warp clamps |disp| at final_warp_radius - 1 px; warn
         # when training displacements approach it
         radii = [int(mc.get("final_warp_radius", 12))
@@ -253,10 +290,6 @@ class TrainerEngine:
         spot_every = int(cfg.get("metric_spot_check_steps", 50))
         log_wall = bool(cfg.get("log_epoch_walltime", False))
         _sync_loop_only(cfg)
-        if saving.get("save_checkpoint") and saving.get("saving_dir"):
-            raise NotImplementedError(
-                "saving.save_checkpoint: checkpoints and resume are not "
-                "ported yet (ROADMAP A9); set it false")
         if others.get("profile_dir"):
             raise NotImplementedError(
                 "others.profile_dir: the profiler trace and its table "
@@ -265,10 +298,6 @@ class TrainerEngine:
             raise NotImplementedError(
                 "training.host_profile: host-phase attribution of the fused "
                 "epoch loop is not ported yet (ROADMAP A10)")
-        if others.get("wandb_visualize_interval", 0) and saving.get("saving_dir"):
-            raise NotImplementedError(
-                "others.wandb_visualize_interval: periodic figures (the plot "
-                "module) are not ported yet (ROADMAP A9); set it to 0")
 
         train_ds = datasets["train"]
         if len(train_ds) == 0:
@@ -292,11 +321,42 @@ class TrainerEngine:
         best_epoch = -1
         best_epoch_metrics: Dict[str, float] = {}
         epochs_without_improvement = 0
+        # checkpoints of the whole training state; resume restores all of it,
+        # so a resumed run is step for step the uninterrupted run (the
+        # shuffle is a pure function of (seed, epoch))
+        ckpt = None
+        start_epoch = 0
+        best_metrics_path = None
+        if saving.get("save_checkpoint") and saving.get("saving_dir"):
+            ckpt = CheckpointManager(
+                Path(saving["saving_dir"]) / "checkpoints",
+                max_to_keep=int(saving.get("save_model_num", 3)),
+                save_interval_epochs=int(saving.get("checkpoint_interval", 1)))
+            best_metrics_path = ckpt.directory / "best_metrics.json"
+            if cfg.get("resume", False) and ckpt.latest_epoch() is not None:
+                state = ckpt.restore(template={"params": self._snapshot(),
+                                               "best_params": best_state})
+                self._load_training_state(state)
+                best_state = state["best_params"]
+                extra = state["extra"]
+                best_val = float(extra["best_val"])
+                best_epoch = int(extra["best_epoch"])
+                epochs_without_improvement = int(
+                    extra["epochs_without_improvement"])
+                start_epoch = int(extra["epoch"]) + 1
+                if best_metrics_path.exists():
+                    best_epoch_metrics = json.loads(
+                        best_metrics_path.read_text())
+        # periodic figures every max(1, int(interval * epochs)) epochs
+        vis_interval = others.get("wandb_visualize_interval", 0)
+        vis_every = max(1, int(float(vis_interval) * epochs)) \
+            if vis_interval and saving.get("saving_dir") else 0
+
         history: List[Dict[str, float]] = []
         prefix = self.metric_prefix
         global_step = 0
         t_start = time.perf_counter()
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             t_epoch = time.perf_counter()
             # epoch-indexed shuffle (loader.epoch_permutation)
             train_loader.set_epoch(epoch)
@@ -336,6 +396,8 @@ class TrainerEngine:
                     time.perf_counter() - t_epoch
             tracker.log(epoch_metrics, step=epoch)
             history.append(dict(epoch_metrics))
+            if vis_every and epoch % vis_every == 0 and val_loader is not None:
+                self._visualize(val_loader, saving, epoch)
 
             # early stopping on total val loss, or on early_stop_metric
             if early_stop_metric is not None:
@@ -347,6 +409,7 @@ class TrainerEngine:
             else:
                 monitor = epoch_metrics.get(f"{prefix}train/total_loss",
                                             float("inf"))
+            stop = False
             if monitor is not None:
                 if monitor < best_val:
                     best_val = monitor
@@ -356,9 +419,26 @@ class TrainerEngine:
                     epochs_without_improvement = 0
                 else:
                     epochs_without_improvement += 1
-                    if epochs_without_improvement > tolerance:
-                        break
+                    stop = epochs_without_improvement > tolerance
+            # after the early-stop update, so the saved counters hold this
+            # epoch's decision
+            if ckpt is not None:
+                saved = ckpt.save(
+                    epoch, self._snapshot(), self._optimizer_states(),
+                    best_params=best_state,
+                    extra={"epoch": epoch, "best_val": float(best_val),
+                           "best_epoch": best_epoch,
+                           "epochs_without_improvement":
+                               epochs_without_improvement,
+                           **self._rng_states()})
+                if saved:
+                    best_metrics_path.write_text(
+                        json.dumps(best_epoch_metrics))
+            if stop:
+                break
 
+        if ckpt is not None:
+            ckpt.close()
         if best_epoch_metrics:
             tracker.log_best(best_epoch_metrics, step=best_epoch)
         elapsed = time.perf_counter() - t_start
@@ -375,6 +455,54 @@ class TrainerEngine:
             for k in (history[-1] if history else {})
             if k.endswith("total_loss") or "/" in k}
         return exp_dict, tracker
+
+    # ---- checkpoint state and figures ------------------------------------ #
+    def _optimizer_states(self) -> Dict[str, Dict[str, Any]]:
+        return {name: {"optimizer": opt.state_dict(),
+                       "schedule": schedule.state_dict()}
+                for name, (opt, schedule) in self.optimizers.items()}
+
+    def _rng_states(self) -> Dict[str, torch.Tensor]:
+        """The generators the loop could read: torch's CPU generator and,
+        on the card, CUDA's."""
+        out = {"rng_cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            out["rng_cuda"] = torch.cuda.get_rng_state(self.device)
+        return out
+
+    def _load_training_state(self, state: Dict[str, Any]) -> None:
+        """Parameters, optimizers, schedules and RNGs from a checkpoint."""
+        for name, module in self.modules.items():
+            module.load_state_dict(state["params"][name])
+        for name, (opt, schedule) in self.optimizers.items():
+            opt.load_state_dict(state["opt_states"][name]["optimizer"])
+            schedule.load_state_dict(state["opt_states"][name]["schedule"])
+        extra = state["extra"]
+        torch.set_rng_state(extra["rng_cpu"])
+        if self.device.type == "cuda" and "rng_cuda" in extra:
+            torch.cuda.set_rng_state(extra["rng_cuda"], self.device)
+
+    def _visualize(self, val_loader, saving: Dict[str, Any],
+                   epoch: int) -> None:
+        """The scheme's figure of the first val batch into
+        ``saving_dir/figures/epoch_{epoch:04d}.png``. A figure must never
+        stop training, nor fail silently: the first failure warns, later
+        ones are suppressed (as in JAX)."""
+        try:
+            vb = next(iter(val_loader))
+            _, vpred = self.eval_step(self.to_device(vb))
+            vpred_np = {k: v.float().cpu().numpy() for k, v in vpred.items()}
+            fig_dir = Path(saving.get("saving_dir", ".")) / "figures"
+            fig_dir.mkdir(parents=True, exist_ok=True)
+            self.scheme.visualize(vb, vpred_np,
+                                  fig_dir / f"epoch_{epoch:04d}.png")
+        except Exception as e:
+            if not self._warned_visualization:
+                self._warned_visualization = True
+                warnings.warn(
+                    f"periodic visualization failed (epoch {epoch}): "
+                    f"{type(e).__name__}: {e} — suppressing further "
+                    f"visualization errors this run")
 
     # ---- inference ----------------------------------------------------------- #
     def test(self, models: Dict[str, Any], datasets: Dict[str, Any],

@@ -31,9 +31,17 @@ prints no result without CUDA. Phases, one line each:
    finite losses, the kernels' launch counts, kernel vs plain on the same
    eval step, and the eval step's time;
 4. train: ``cardiax_torch.main.run`` on ``configs/joint.json`` at full width
-   for 2 epochs over a synthetic npy (train 25 slices in 3 batches, the last
-   one padded; val 5; test 5): finite losses each epoch and the exact launch
-   counts of the four kernels;
+   with only its data, split, epochs and saving_dir changed, for 2 epochs
+   over a synthetic npy (train 25 slices in 3 batches, the last one padded;
+   val 5; test 5): finite losses each epoch, the exact launch counts of the
+   four kernels, a checkpoint each epoch (host time and size) and the
+   periodic figures (or the warning that skipped them: the card's machine
+   may lack matplotlib); then ``training.resume`` to a third epoch (it must
+   start at epoch 2 with the file's parameters, optimizer and schedule
+   state bit for bit, launch one epoch's kernels plus the final
+   evaluations, and keep finite losses) and ``training.inference_only``
+   (the saved models alone: no backward kernel, the resumed run's metrics
+   within 1e-4 relative);
 5. train step: kernel path vs plain path on one train step (loss and every
    parameter's gradient), a 10-step overfit of one batch, and the train
    step's time;
@@ -53,12 +61,19 @@ prints no result without CUDA. Phases, one line each:
    launch counts), one train step kernel vs plain, the fused solve vs the
    separate one on one train step, and the train step's host and device
    time with each;
-9. the kernel table as one JSON line, then the result line
+9. reg: ``cardiax_torch.main.run`` on ``configs/reg.json`` at its full
+   width (16 features, 3 levels, 5 Euler steps, batch 10, final-warp radius
+   12) over frame pairs of synthetic 128^2 slices with T=20 (train 40, val
+   10, test 10) for 2 epochs with checkpoints: finite losses, the exact
+   launches of K1-K4 (K5-K7: 0); one reg train step kernel vs plain, and
+   its host and device time and peak device memory;
+10. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
 train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt``,
-``DIR/large_train_profile.txt`` and ``DIR/solve_train_profile.txt``.
+``DIR/large_train_profile.txt``, ``DIR/solve_train_profile.txt`` and
+``DIR/reg_train_profile.txt``.
 ``--baseline DIR`` builds the kernels of DIR (a checkout of an earlier
 commit, ``git archive``) as well, times each kernel alone in turns with
 this tree's (baseline, this, this, baseline) and says whether K1's and
@@ -69,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import subprocess
@@ -76,6 +92,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from pathlib import Path
 
 import torch
@@ -754,21 +771,33 @@ def check_k7(dev, n=190, h=64, w=64):
             "unfused_pair_kernel_ms": pair_kernel_ms}
 
 
-def random_nets(cfg, n_pairs: int, seed: int):
-    """The flagship's networks with seeded random weights. JAX
-    zero-initialises the momentum head (every warp would be the identity);
-    small random weights there make the shooting and the warps real."""
+def random_nets(cfg, n_pairs, seed: int):
+    """The configured networks with seeded random weights. JAX
+    zero-initialises every momentum head (every warp would be the
+    identity); small random weights there make the shooting and the warps
+    real."""
     from cardiax_torch.models import build_model, init_weights
+    from cardiax_torch.models.unet import MomentumUNet
     gen = torch.Generator().manual_seed(seed)
     nets = {name: build_model(mc, n_pairs=n_pairs)
             for name, mc in cfg["networks"].items()}
     for b in nets.values():
         init_weights(b.module, gen)
         b.initialized = True
-    head = nets["joint_register_strainmat"].module.momentum_unet.head
+    heads = [m.head for b in nets.values() for m in b.module.modules()
+             if isinstance(m, MomentumUNet)]
     with torch.no_grad():
-        head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * 0.05)
+        for head in heads:
+            head.weight.copy_(torch.randn(head.weight.shape, generator=gen)
+                              * 0.05)
     return nets
+
+
+def n_euler_steps(cfg) -> int:
+    """The Euler steps of the configured registration network."""
+    return next(int(mc["n_integration_steps"])
+                for mc in cfg["networks"].values()
+                if "n_integration_steps" in mc)
 
 
 def counts(ek, wk):
@@ -975,13 +1004,90 @@ def write_profile(prof, out_dir: Path, kind: str) -> None:
     print(f"profile: {path}")
 
 
+def set_fields(cfg, changes) -> None:
+    """``changes`` maps dotted config paths to new values."""
+    for key, val in changes.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for seg in path:
+            node = node[seg]
+        node[leaf] = val
+
+
+@contextlib.contextmanager
+def watched_main_run():
+    """Around ``main.run``: the warnings it raised (``caught``), each
+    checkpoint save's host time and file size (``saves``), and the training
+    state right after a resume restored it (``restored``)."""
+    from cardiax_torch.io.checkpoints import CheckpointManager, to_cpu
+    from cardiax_torch.train.engine import TrainerEngine
+    saves, restored = [], []
+    save, load = CheckpointManager.save, TrainerEngine._load_training_state
+
+    def timed_save(self, epoch, *args, **kwargs):
+        t0 = time.perf_counter()
+        wrote = save(self, epoch, *args, **kwargs)
+        if wrote:
+            saves.append((time.perf_counter() - t0,
+                          self._path(epoch).stat().st_size))
+        return wrote
+
+    def recorded_load(self, state):
+        load(self, state)
+        restored.append({
+            "params": {n: {k: v.detach().cpu().clone()
+                           for k, v in m.state_dict().items()}
+                       for n, m in self.modules.items()},
+            "opt_states": to_cpu({
+                n: {"optimizer": opt.state_dict(),
+                    "schedule": sched.state_dict()}
+                for n, (opt, sched) in self.optimizers.items()})})
+
+    CheckpointManager.save, TrainerEngine._load_training_state = \
+        timed_save, recorded_load
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield types.SimpleNamespace(caught=caught, saves=saves,
+                                        restored=restored)
+    finally:
+        CheckpointManager.save, TrainerEngine._load_training_state = \
+            save, load
+
+
+def figure_text(run_dir: Path, caught, expected: int) -> str:
+    """How many periodic figures ``run_dir/figures`` holds, or why none
+    were drawn. The card's machine may lack matplotlib: a figure that fails
+    warns once and training goes on, as in JAX."""
+    figs = sorted((run_dir / "figures").glob("epoch_*.png")) \
+        if (run_dir / "figures").is_dir() else []
+    failed = [str(w.message) for w in caught
+              if "periodic visualization failed" in str(w.message)]
+    require(len(figs) == expected or (failed and not figs),
+            f"{len(figs)} figures in {run_dir} (expected {expected}) and "
+            f"no warning")
+    if figs:
+        return f"{len(figs)} periodic figures written"
+    return f"figures skipped: {failed[0]}"
+
+
+def save_text(saves) -> str:
+    if not saves:
+        return "no checkpoint saved"
+    ms = [t * 1e3 for t, _ in saves]
+    return (f"{len(saves)} checkpoint saves, host time {', '.join(f'{x:.3f}' for x in ms)} "
+            f"ms, {saves[-1][1] / 1e6:.3f} MB each")
+
+
 def run_train(tmp: Path, label: str = "train"):
     """``cardiax_torch.main.run`` on configs/joint.json at full width, with
-    only the fields printed below changed; launch counts from 0 around it.
-    With ``shooting._FUSED_SOLVE`` set, the Euler steps take K6/K7 instead
-    of K2/K3."""
+    only its data, split, epochs and saving_dir changed; launch counts from
+    0 around it. With ``shooting._FUSED_SOLVE`` set, the Euler steps take
+    K6/K7 instead of K2/K3. Returns the launches, the config and the
+    result."""
     from cardiax_torch import main as port_main
     from cardiax_torch.data.synthetic import make_dataset, save_npy
+    from cardiax_torch.io.checkpoints import CheckpointManager
     from cardiax_torch.ops import epdiff_kernels as ek
     from cardiax_torch.ops import shooting as sh
     from cardiax_torch.ops import warp_kernels as wk
@@ -993,33 +1099,30 @@ def run_train(tmp: Path, label: str = "train"):
     changes = {
         "training.epochs": 2,
         "saving.saving_dir": str(tmp / "run"),
-        "saving.save_checkpoint": False,
-        "others.wandb_visualize_interval": 0,
         "data.npy_filename": str(npy),
         "data_split": {"method": "by_count", "splits": {
             "train": {"count": 25}, "val": {"count": 5},
             "test": {"count": 5}}},
     }
-    for key, val in changes.items():
-        node = cfg
-        *path, leaf = key.split(".")
-        for seg in path:
-            node = node[seg]
-        node[leaf] = val
+    set_fields(cfg, changes)
     print(f"{label}: configs/joint.json with {json.dumps(changes)}")
     epochs = changes["training.epochs"]
     batch_size = int(cfg["training"]["batch_size"])
-    n_steps = int(cfg["networks"]["joint_register_strainmat"]
-                  ["n_integration_steps"])
+    n_steps = n_euler_steps(cfg)
+    vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
+                           * epochs))
+    n_figs = len(range(0, epochs, vis_every))
     zero_counts(ek, wk)
     t0 = time.perf_counter()
-    res = port_main.run(cfg)
-    torch.cuda.synchronize()
+    with watched_main_run() as watch:
+        res = port_main.run(copy.deepcopy(cfg))
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = named_counts(ek, wk)
     train_steps = epochs * math.ceil(25 / batch_size)
-    # validation every epoch, then the final val and test evaluations
-    eval_batches = epochs + 2
+    # validation every epoch, each figure's val batch, then the final val
+    # and test evaluations
+    eval_batches = epochs + n_figs + 2
     fwd, bwd = n_steps * (train_steps + eval_batches), n_steps * train_steps
     solve = bool(sh._FUSED_SOLVE)
     expect = {"mc_warp_fwd": train_steps + eval_batches,
@@ -1038,15 +1141,126 @@ def run_train(tmp: Path, label: str = "train"):
             for k, v in res[f"{t}_performance"].items()}
     require(all(math.isfinite(v) for v in perf.values()),
             f"{label}: non-finite metric: {perf}")
-    require((tmp / "run" / "model-joint_register_strainmat.pt").is_file(),
+    run_dir = tmp / "run"
+    require((run_dir / "model-joint_register_strainmat.pt").is_file(),
             f"{label}: the trained model was not saved")
+    keep = int(cfg["saving"]["save_model_num"])
+    saved = CheckpointManager(run_dir / "checkpoints").epochs()
+    require(saved == list(range(max(0, epochs - keep), epochs))
+            and len(watch.saves) == epochs,
+            f"{label}: checkpoints of epochs {saved}, {len(watch.saves)} "
+            f"saves")
     print(f"{label}: main.run {epochs} epochs x {train_steps // epochs} train "
           f"steps (last batch padded) + {eval_batches} eval batches in "
           f"{secs:.2f} s; total_loss per epoch train "
           f"{[round(v, 6) for v in hist['train/total_loss']]}, val "
-          f"{[round(v, 6) for v in hist['val/total_loss']]}; launches "
+          f"{[round(v, 6) for v in hist['val/total_loss']]}; checkpoints of "
+          f"epochs {saved} ({save_text(watch.saves)}); "
+          f"{figure_text(run_dir, watch.caught, n_figs)}; launches "
           f"{launches}")
-    return launches
+    return launches, cfg, res
+
+
+def run_resume(cfg) -> None:
+    """Resume the train phase's run (``cfg``) to one more epoch, then
+    evaluate its saved models alone (``inference_only``); launch counts from
+    0 around each."""
+    from cardiax_torch import main as port_main
+    from cardiax_torch.io.checkpoints import CheckpointManager
+    from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops import warp_kernels as wk
+    run_dir = Path(cfg["saving"]["saving_dir"])
+    mgr = CheckpointManager(run_dir / "checkpoints")
+    start = mgr.latest_epoch() + 1
+    saved = mgr.restore()
+    cfg = copy.deepcopy(cfg)
+    set_fields(cfg, {"training.epochs": start + 1, "training.resume": True})
+    epochs = start + 1
+    batch_size = int(cfg["training"]["batch_size"])
+    n_steps = n_euler_steps(cfg)
+    vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
+                           * epochs))
+    n_figs = int(start % vis_every == 0)
+    zero_counts(ek, wk)
+    t0 = time.perf_counter()
+    with watched_main_run() as watch:
+        res = port_main.run(copy.deepcopy(cfg))
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = named_counts(ek, wk)
+    require(len(watch.restored) == 1, "resume: the state was not restored")
+    got = watch.restored[0]
+    for name, state in saved["params"].items():
+        for k, v in state.items():
+            require(torch.equal(got["params"][name][k], v),
+                    f"resume: restored {name}.{k} differs from the file")
+    n_opt = 0
+    for name, st in saved["opt_states"].items():
+        for part in ("optimizer", "schedule"):
+            want, have = st[part], got["opt_states"][name][part]
+            if part == "optimizer":
+                for idx, slots in want["state"].items():
+                    for k, v in slots.items():
+                        require(torch.equal(have["state"][idx][k], v),
+                                f"resume: {name} optimizer {idx}.{k} differs")
+                        n_opt += 1
+                require(have["param_groups"] == want["param_groups"],
+                        f"resume: {name} param groups differ")
+            else:
+                require(have == want, f"resume: {name} schedule differs")
+    steps = math.ceil(25 / batch_size)
+    eval_batches = 1 + n_figs + 2
+    expect = {"mc_warp_fwd": steps + eval_batches,
+              "epdiff_step_fwd": n_steps * (steps + eval_batches),
+              "epdiff_step_bwd": n_steps * steps,
+              "mc_warp_disp_bwd": steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
+    require(launches == expect, f"resume launches {launches} != {expect}")
+    hist = res["train_loss_dict"]
+    for key in ("train/total_loss", "val/total_loss"):
+        require(len(hist[key]) == 1 and math.isfinite(hist[key][0]),
+                f"resume {key}: {hist[key]}")
+    require(mgr.latest_epoch() == start
+            and mgr.restore()["extra"]["epoch"] == start,
+            f"resume: no checkpoint of epoch {start}")
+    print(f"resume: training.resume with training.epochs {epochs}: started "
+          f"at epoch {start}, restored {sum(len(s) for s in saved['params'].values())} "
+          f"parameter tensors and {n_opt} optimizer state tensors equal to "
+          f"epoch {start - 1}'s file, plus both schedules; 1 epoch "
+          f"({steps} train steps + {eval_batches} eval batches) in "
+          f"{secs:.2f} s; total_loss train {hist['train/total_loss'][0]:.6g}"
+          f", val {hist['val/total_loss'][0]:.6g}; {save_text(watch.saves)};"
+          f" launches {launches}")
+
+    # the saved models alone: no training, no backward kernel
+    cfg_inf = copy.deepcopy(cfg)
+    set_fields(cfg_inf, {"training.inference_only": True,
+                         "training.resume": False})
+    zero_counts(ek, wk)
+    t0 = time.perf_counter()
+    inf = port_main.run(cfg_inf)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = named_counts(ek, wk)
+    expect = {"mc_warp_fwd": 2, "epdiff_step_fwd": 2 * n_steps,
+              "epdiff_step_bwd": 0, "mc_warp_disp_bwd": 0,
+              "mc_warp_fused_bwd": 0, "epdiff_step_solve_fwd": 0,
+              "epdiff_step_solve_bwd": 0}
+    require(launches == expect, f"inference launches {launches} != {expect}")
+    require("train_loss_dict" not in inf, "inference_only trained")
+    worst = 0.0
+    for t in ("val", "test"):
+        want, have = res[f"{t}_performance"], inf[f"{t}_performance"]
+        require(want.keys() == have.keys(), f"inference {t}: other metrics")
+        for k, v in want.items():
+            require(math.isclose(have[k], v, rel_tol=1e-4, abs_tol=1e-6),
+                    f"inference {k}: {have[k]} vs the trained run's {v}")
+            if v:
+                worst = max(worst, abs(have[k] - v) / abs(v))
+    print(f"inference: training.inference_only on {run_dir.name}/: reloaded "
+          f"model-*.pt, val and test metrics equal the resumed run's within "
+          f"relative {worst:.3e} (tol 1e-4) in {secs:.2f} s; launches "
+          f"{launches}")
 
 
 def grads_of(engine):
@@ -1075,19 +1289,23 @@ def step_gate(label, what, values_a, grads_a, values_b, grads_b):
             f"{sorted(rel.values())[len(rel) // 2]:.3e}")
 
 
-def kernel_vs_plain_step(cfg, batch, label):
+def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship"):
     """One train step (loss and every parameter's gradient) through the
     kernels and through the plain versions, on the same random weights.
-    Returns a factory of fresh engines and the batch on the card."""
+    ``n_pairs`` sizes the joint network (the flagship's T - 1 by default;
+    None for ``reg``). Returns a factory of fresh engines and the batch on
+    the card."""
     from cardiax_torch.ops import epdiff_kernels as ek
     from cardiax_torch.ops import shooting as sh
     from cardiax_torch.ops import warp_kernels as wk
     from cardiax_torch.train import build_trainer
-    t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
+    if n_pairs == "flagship":
+        n_pairs = int(cfg["datasets"]["train"]
+                      ["n_myo_frames_to_use_for_regression"]) - 1
 
     def fresh_engine():
         engine = build_trainer(cfg["training"], None, cfg)
-        engine.setup(random_nets(cfg, t_myo - 1, seed=1), steps_per_epoch=3)
+        engine.setup(random_nets(cfg, n_pairs, seed=1), steps_per_epoch=3)
         return engine
 
     engine = fresh_engine()
@@ -1096,8 +1314,7 @@ def kernel_vs_plain_step(cfg, batch, label):
     values_k = engine.backward(arrays)
     grads_k = grads_of(engine)
     torch.cuda.synchronize()
-    n_steps = int(cfg["networks"]["joint_register_strainmat"]
-                  ["n_integration_steps"])
+    n_steps = n_euler_steps(cfg)
     step_counts = tuple(a - b for a, b in zip(counts(ek, wk), before))
     expect = (0, 0, 1, 1, 0, n_steps, n_steps) if sh._FUSED_SOLVE \
         else (n_steps, n_steps, 1, 1, 0, 0, 0)
@@ -1184,7 +1401,7 @@ def run_solve(tmp: Path, profile_dir):
     saved = sh._FUSED_SOLVE
     sh._FUSED_SOLVE = True
     try:
-        launches = run_train(tmp, "solve")
+        launches, _, _ = run_train(tmp, "solve")
         cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
         ds_cfg = cfg["datasets"]["train"]
         t_myo = int(ds_cfg["n_myo_frames_to_use_for_regression"])
@@ -1298,6 +1515,111 @@ def run_ops():
     return launches
 
 
+def run_reg(tmp: Path, card: str, profile_dir):
+    """``main.run`` on configs/reg.json at its full width (16 features, 3
+    levels, 5 Euler steps, batch 10, final-warp radius 12) over frame pairs
+    of synthetic 128^2 slices with T=20, for 2 epochs with checkpoints;
+    launch counts from 0 around it. Then one reg train step kernel vs
+    plain, and its host and device time and peak device memory."""
+    from cardiax_torch import main as port_main
+    from cardiax_torch.data.datasets import BasicRegistrationDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.synthetic import (make_dataset,
+                                              make_registration_pairs,
+                                              save_npy)
+    from cardiax_torch.io.checkpoints import CheckpointManager
+    from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops import warp_kernels as wk
+    cfg = json.loads((ROOT / "configs" / "reg.json").read_text())
+    pairs = make_registration_pairs(make_dataset(
+        n_subjects=4, slices_per_subject=1, h=128, w=128, n_frames=20,
+        seed=9))
+    require(len(pairs) >= 60, f"reg: only {len(pairs)} pairs")
+    npy = tmp / "pairs.npy"
+    save_npy(str(npy), pairs)
+    n_train, n_val, n_test = 40, 10, 10
+    changes = {
+        "training.epochs": 2,
+        "saving.saving_dir": str(tmp / "reg"),
+        "data.npy_filename": str(npy),
+        "data_split": {"method": "by_count", "splits": {
+            "train": {"count": n_train}, "val": {"count": n_val},
+            "test": {"count": n_test}}},
+    }
+    set_fields(cfg, changes)
+    print(f"reg: configs/reg.json with {json.dumps(changes)} ({len(pairs)} "
+          f"pairs of 128^2 frames from 4 slices, T=20)")
+    epochs = changes["training.epochs"]
+    batch_size = int(cfg["training"]["batch_size"])
+    n_steps = n_euler_steps(cfg)
+    vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
+                           * epochs))
+    n_vis = len(range(0, epochs, vis_every))
+    run_cfg = copy.deepcopy(cfg)
+    zero_counts(ek, wk)
+    t0 = time.perf_counter()
+    with watched_main_run() as watch:
+        res = port_main.run(run_cfg)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = named_counts(ek, wk)
+    train_steps = epochs * math.ceil(n_train / batch_size)
+    # val each epoch, the first val batch of each figure epoch (the reg
+    # batch has no strain matrix, so no figure is drawn), final val and test
+    eval_batches = epochs * math.ceil(n_val / batch_size) + n_vis \
+        + math.ceil(n_val / batch_size) + math.ceil(n_test / batch_size)
+    expect = {"mc_warp_fwd": train_steps + eval_batches,
+              "epdiff_step_fwd": n_steps * (train_steps + eval_batches),
+              "epdiff_step_bwd": n_steps * train_steps,
+              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
+    require(launches == expect, f"reg launches {launches} != {expect}")
+    hist = res["train_loss_dict"]
+    for key in ("train/total_loss", "val/total_loss"):
+        require(len(hist[key]) == epochs
+                and all(math.isfinite(v) for v in hist[key]),
+                f"reg {key} per epoch: {hist[key]}")
+    perf = {k: v for t in ("val", "test")
+            for k, v in res[f"{t}_performance"].items()}
+    require(all(math.isfinite(v) for v in perf.values())
+            and "final-test/reconstruction_mse" in perf,
+            f"reg: metrics {perf}")
+    # the scheme injects the LDDMM energy into a config without losses
+    require(set(run_cfg["losses"]) == {"registration_reconstruction"},
+            f"reg: losses {run_cfg['losses']}")
+    saved = CheckpointManager(tmp / "reg" / "checkpoints").epochs()
+    require(saved == list(range(epochs)), f"reg: checkpoints {saved}")
+    failed = [str(w.message) for w in watch.caught
+              if "periodic visualization failed" in str(w.message)]
+    print(f"reg: main.run {epochs} epochs x {train_steps // epochs} train "
+          f"steps + {eval_batches} eval batches in {secs:.2f} s; total_loss "
+          f"per epoch train {[round(v, 6) for v in hist['train/total_loss']]}"
+          f", val {[round(v, 6) for v in hist['val/total_loss']]}; test "
+          f"reconstruction_mse {perf['final-test/reconstruction_mse']:.6g}; "
+          f"checkpoints of epochs {saved} ({save_text(watch.saves)}); "
+          f"{failed[0] if failed else 'no figure (no strain matrix)'}; "
+          f"launches {launches}")
+
+    ds = BasicRegistrationDataset(pairs[:batch_size],
+                                  dataset_config=cfg["datasets"]["train"])
+    batch = next(iter(Batcher(ds, batch_size)))
+    fresh_engine, arrays = kernel_vs_plain_step(cfg, batch, "reg train step",
+                                                n_pairs=None)
+    engine = fresh_engine()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    step_ms = step_time_ms(engine, arrays, reps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy_ms, prof = profile_steps(lambda: engine.train_step(arrays))
+    print(f"reg train step ({card}): {step_ms:.3f} ms/batch of {batch_size} "
+          f"pairs = {batch_size / step_ms * 1e3:.1f} pairs/s ({reps} steps "
+          f"after 2 warm-up steps, host clock); {busy_line(busy_ms, step_ms)}"
+          f"; peak device memory {peak_gb:.3f} GB")
+    if profile_dir:
+        write_profile(prof, Path(profile_dir), "reg_train")
+    return launches
+
+
 def large_config():
     """configs/joint.json's networks, losses and optimizers at the settings
     of tools/bench_large.py: batch 2, T=8 (7 pairs), Ts=16, 5 Euler steps,
@@ -1397,7 +1719,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="directory for profiler tables of the eval, train, "
-                         "large train and fused-solve train steps")
+                         "large train, fused-solve train and reg train "
+                         "steps")
     ap.add_argument("--baseline", default=None,
                     help="a checkout of an earlier commit whose kernels "
                          "take the same C arguments: each kernel alone is "
@@ -1411,7 +1734,7 @@ def main(argv=None) -> int:
     from cardiax_torch.device import set_numerics
     set_numerics()
     dev = torch.device("cuda")
-    phase_build()
+    card = phase_build()
     if args.baseline:
         build_baseline(Path(args.baseline).resolve())
     kernels = [check_k1(dev), check_k2(dev), check_k3_all(dev),
@@ -1427,16 +1750,19 @@ def main(argv=None) -> int:
     check_k7(dev, 190, 128, 128)
     paths = {"eval": run_slice(args.profile)}
     with tempfile.TemporaryDirectory() as tmp:
-        paths["train"] = run_train(Path(tmp))
+        paths["train"], cfg_train, _ = run_train(Path(tmp))
+        run_resume(cfg_train)
     run_train_step(args.profile)
     paths["ops"] = run_ops()
     with tempfile.TemporaryDirectory() as tmp:
         paths["large"] = run_large(Path(tmp), args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         paths["solve"] = run_solve(Path(tmp), args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["reg"] = run_reg(Path(tmp), card, args.profile)
     # launches: K1-K4 from the flagship's training run, K5 from the ops
     # path (the only one that needs a field gradient), K6/K7 from the
-    # fused-solve run; every path's counts beside them
+    # fused-solve run; every path's counts beside them (reg: K1-K4)
     main_path = {"mc_warp_fwd": "train", "epdiff_step_fwd": "train",
                  "epdiff_step_bwd": "train", "mc_warp_disp_bwd": "train",
                  "mc_warp_fused_bwd": "ops", "epdiff_step_solve_fwd": "solve",

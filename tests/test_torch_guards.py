@@ -1,7 +1,9 @@
 """Guards of the port that hold on any machine.
 
-* ``cardiax_torch`` and ``chip_smoke.py`` import nothing of JAX or of the
-  JAX package (``cardiax_torch`` itself is allowed);
+* ``cardiax_torch`` and ``chip_smoke.py`` import nothing of JAX, of the
+  JAX package (``cardiax_torch`` itself is allowed) or the ``msgpack``
+  package, which the card's machine lacks (``io/msgpack.py`` decodes
+  flax's files itself);
 * without CUDA, ``resolve_device(None)`` and ``cardiax_torch.main.main``
   raise instead of falling back;
 * each kernel wrapper refuses to launch without a CUDA tensor; gradients
@@ -22,7 +24,7 @@ from cardiax_torch.kernels import build
 from cardiax_torch.ops import epdiff_kernels, warp_kernels
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cardiax"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cardiax", "msgpack"}
 
 
 def _imported_roots(path: Path):

@@ -1,4 +1,5 @@
-"""The port's engine, dataset, export and builders take JAX's parameters.
+"""The port's engine, datasets, export, checkpoints, the reg scheme and
+model factory take JAX's parameters.
 
 ``tests/test_torch_solve.py::test_port_ops_have_the_jax_signatures`` holds
 every name of ``cardiax_torch.ops`` against ``cardiax.ops``; this file
@@ -16,15 +17,25 @@ import pytest
 import torch
 
 import cardiax.data.datasets as jds
+import cardiax.data.synthetic as jsynthetic
+import cardiax.io.checkpoints as jckpt
 import cardiax.io.export as jexport
+import cardiax.main as jmain
 import cardiax.models as jmodels
 import cardiax.ops.fluid_metric as jfm
 import cardiax.train.engine as jengine
 import cardiax_torch.data.datasets as tds
+import cardiax_torch.data.synthetic as tsynthetic
+import cardiax_torch.io.checkpoints as tckpt
 import cardiax_torch.io.export as texport
+import cardiax_torch.main as tmain
 import cardiax_torch.models as tmodels
 import cardiax_torch.ops.fluid_metric as tfm
 import cardiax_torch.train.engine as tengine
+from cardiax.models.registration import RegistrationNet as JaxRegistrationNet
+from cardiax.train.schemes.reg import RegScheme as JaxRegScheme
+from cardiax_torch.models.registration import RegistrationNet
+from cardiax_torch.train.schemes.reg import RegScheme
 from cardiax_torch.data.synthetic import make_dataset
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.train import build_trainer
@@ -45,6 +56,33 @@ PAIRS = {
     "fluid_metric.solve_mm_operands": (tfm.solve_mm_operands,
                                        jfm.solve_mm_operands),
     "models.build_model": (tmodels.build_model, jmodels.build_model),
+    "models.ModelBundle": (tmodels.ModelBundle.__init__,
+                           jmodels.ModelBundle.__init__),
+    "RegistrationNet.__init__": (RegistrationNet.__init__,
+                                 JaxRegistrationNet.__init__),
+    "RegistrationNet.forward": (RegistrationNet.forward,
+                                JaxRegistrationNet.__call__),
+    "RegScheme.__init__": (RegScheme.__init__, JaxRegScheme.__init__),
+    "RegScheme.forward": (RegScheme.forward, JaxRegScheme.forward),
+    "RegScheme.performance": (RegScheme.performance,
+                              JaxRegScheme.performance),
+    "Scheme.visualize": (tengine.Scheme.visualize, jengine.Scheme.visualize),
+    "BasicRegistrationDataset.__init__": (
+        tds.BasicRegistrationDataset.__init__,
+        jds.BasicRegistrationDataset.__init__),
+    "synthetic.make_registration_pairs": (
+        tsynthetic.make_registration_pairs,
+        jsynthetic.make_registration_pairs),
+    "synthetic.add_displacement_fields": (
+        tsynthetic.add_displacement_fields,
+        jsynthetic.add_displacement_fields),
+    "io.export.load_model_params": (texport.load_model_params,
+                                    jexport.load_model_params),
+    "main.run": (tmain.run, jmain.run),
+    **{f"CheckpointManager.{m}": (getattr(tckpt.CheckpointManager, m),
+                                  getattr(jckpt.CheckpointManager, m))
+       for m in ("__init__", "save", "latest_epoch", "restore", "wait",
+                 "close")},
 }
 
 # name -> (JAX parameters the port drops, port parameters JAX lacks, reason)
@@ -64,6 +102,21 @@ BY_DESIGN = {
         set(), {"n_pairs"},
         "torch modules are built with their shapes; flax infers the pair "
         "count at the first call"),
+    "models.ModelBundle": (
+        {"params"}, {"initialized"},
+        "the module holds its parameters; the flag says whether they were "
+        "drawn or loaded yet"),
+    "RegistrationNet.__init__": (
+        {"channel_pack", "parent", "name"}, set(),
+        "flax's module plumbing; channel_pack is a TPU layout"),
+    "RegistrationNet.forward": (
+        {"train"}, set(), "torch modules hold their train/eval mode"),
+    "RegScheme.forward": (
+        {"params", "train"}, set(),
+        "torch modules hold their parameters and their train/eval mode"),
+    "main.run": (
+        set(), {"device"},
+        "the port's entry points take the device; None means the card"),
 }
 
 

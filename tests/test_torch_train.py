@@ -458,14 +458,15 @@ def test_main_run_end_to_end_on_cpu(tmp_path):
                                                        reg_features=4)
     cfg["networks"]["LMA"]["inner_conv_channel_num"] = 4
     cfg["training"].update(epochs=1, batch_size=2)
-    cfg["saving"].update(saving_dir=str(tmp_path / "out"),
-                         save_checkpoint=False)
-    cfg["others"]["wandb_visualize_interval"] = 0
+    cfg["saving"]["saving_dir"] = str(tmp_path / "out")
     res = port_main.run(copy.deepcopy(cfg), device="cpu")
     out = tmp_path / "out"
+    # the config as written: a checkpoint and a figure each epoch
     for name in ("val_pred.npy", "test_pred.npy", "config.json",
                  "performance.json", "metrics.jsonl",
-                 "model-joint_register_strainmat.pt", "model-LMA.pt"):
+                 "model-joint_register_strainmat.pt", "model-LMA.pt",
+                 "checkpoints/epoch_000000.pt",
+                 "checkpoints/best_metrics.json", "figures/epoch_0000.png"):
         assert (out / name).is_file(), name
     preds = np.load(out / "test_pred.npy", allow_pickle=True)
     assert len(preds) == 1 and preds[0]["TOS_pred"].shape == (126,)
