@@ -1,5 +1,6 @@
 // K2: one forward Euler step of EPDiff with the semi-Lagrangian map update;
-// K3 (below): its backward.
+// K3 (below): its backward; K6/K7 (last): both with the fluid-metric solve
+// inside the kernel.
 //
 // Replaces cardiax/ops/epdiff_pallas.py:_fwd_kernel (launched through
 // epdiff_step). Per item (2, H, W):
@@ -24,65 +25,63 @@
 // DRAM sees each input about once. f32 arithmetic and accumulation, in the
 // evaluation order of the TPU kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-// Loads of v. K2 takes v as an input and reads it through the read-only
-// path (__ldg); K6 computes v into a scratch buffer earlier in the same
-// kernel, where the non-coherent path is undefined, so it reads it with
-// plain loads (VNC = false), as does K7's step_bwd_pixel.
-template <bool VNC>
-__device__ __forceinline__ float ldv(const float* p) {
-  if constexpr (VNC) return __ldg(p);
-  else return *p;
+// One item's (2, H, W) planes in device memory, read through the read-only
+// path: f(c, i, j) is channel c at row i, column j.
+struct Planes {
+  const float* p;
+  int64_t hw;
+  int w;
+  __device__ __forceinline__ float operator()(int c, int i, int j) const {
+    return __ldg(p + c * hw + (int64_t)i * w + j);
+  }
+};
+
+// d/dy of channel c of f at (i, j): central inside, one-sided on the first
+// and last row (exactly cardiax/ops/shooting.py:_grad_hw).
+template <class F>
+__device__ __forceinline__ float ddy(F f, int c, int i, int j, int h) {
+  if (i == 0) return f(c, 1, j) - f(c, 0, j);
+  if (i == h - 1) return f(c, i, j) - f(c, i - 1, j);
+  return 0.5f * (f(c, i + 1, j) - f(c, i - 1, j));
 }
 
-// d/dy of plane f at (i, j): central inside, one-sided on the first and
-// last row (exactly cardiax/ops/shooting.py:_grad_hw).
-template <bool NC>
-__device__ __forceinline__ float ddy(const float* f, int i, int j, int h,
-                                     int w) {
-  if (i == 0) return ldv<NC>(f + w + j) - ldv<NC>(f + j);
-  if (i == h - 1)
-    return ldv<NC>(f + (int64_t)i * w + j)
-           - ldv<NC>(f + (int64_t)(i - 1) * w + j);
-  return 0.5f * (ldv<NC>(f + (int64_t)(i + 1) * w + j)
-                 - ldv<NC>(f + (int64_t)(i - 1) * w + j));
+template <class F>
+__device__ __forceinline__ float ddx(F f, int c, int i, int j, int w) {
+  if (j == 0) return f(c, i, 1) - f(c, i, 0);
+  if (j == w - 1) return f(c, i, j) - f(c, i, j - 1);
+  return 0.5f * (f(c, i, j + 1) - f(c, i, j - 1));
 }
 
-template <bool NC>
-__device__ __forceinline__ float ddx(const float* f, int i, int j, int w) {
-  const float* row = f + (int64_t)i * w;
-  if (j == 0) return ldv<NC>(row + 1) - ldv<NC>(row);
-  if (j == w - 1) return ldv<NC>(row + j) - ldv<NC>(row + j - 1);
-  return 0.5f * (ldv<NC>(row + j + 1) - ldv<NC>(row + j - 1));
-}
-
-// K2's body at pixel (i, j) = p of one item: v, m, u, m_out, u_out point at
-// the item's (2, H, W) planes.
-template <bool VNC>
+// K2's body at pixel (i, j) = p of one item: v(c, i, j) reads v (K2: device
+// memory; K6: its cluster's shared memory), m the item's m; u, m_out, u_out
+// point at the item's (2, H, W) planes.
+template <class V>
 __device__ __forceinline__ void step_fwd_pixel(
-    const float* v, const float* __restrict__ m, const float* __restrict__ u,
-    float* __restrict__ m_out, float* __restrict__ u_out, int64_t p, int i,
-    int j, int h, int w, float dt, float r) {
+    V v, Planes m, const float* __restrict__ u, float* __restrict__ m_out,
+    float* __restrict__ u_out, int64_t p, int i, int j, int h, int w,
+    float dt, float r) {
   const int64_t hw = (int64_t)h * w;
-  const float* vy_p = v;
-  const float* vx_p = v + hw;
-  const float* my_p = m;
-  const float* mx_p = m + hw;
-  const float vy = ldv<VNC>(vy_p + p), vx = ldv<VNC>(vx_p + p);
-  const float my = __ldg(my_p + p), mx = __ldg(mx_p + p);
+  const float vy = v(0, i, j), vx = v(1, i, j);
+  const float my = m(0, i, j), mx = m(1, i, j);
 
-  const float dvy_dy = ddy<VNC>(vy_p, i, j, h, w);
-  const float dvy_dx = ddx<VNC>(vy_p, i, j, w);
-  const float dvx_dy = ddy<VNC>(vx_p, i, j, h, w);
-  const float dvx_dx = ddx<VNC>(vx_p, i, j, w);
-  const float dmy_dy = ddy<true>(my_p, i, j, h, w);
-  const float dmy_dx = ddx<true>(my_p, i, j, w);
-  const float dmx_dy = ddy<true>(mx_p, i, j, h, w);
-  const float dmx_dx = ddx<true>(mx_p, i, j, w);
+  const float dvy_dy = ddy(v, 0, i, j, h);
+  const float dvy_dx = ddx(v, 0, i, j, w);
+  const float dvx_dy = ddy(v, 1, i, j, h);
+  const float dvx_dx = ddx(v, 1, i, j, w);
+  const float dmy_dy = ddy(m, 0, i, j, h);
+  const float dmy_dx = ddx(m, 0, i, j, w);
+  const float dmx_dy = ddy(m, 1, i, j, h);
+  const float dmx_dx = ddx(m, 1, i, j, w);
   const float div = dvy_dy + dvx_dx;
   const float a_y = dvy_dy * my + dvx_dy * mx + dmy_dy * vy + dmy_dx * vx
                     + my * div;
@@ -129,8 +128,8 @@ __global__ void epdiff_step_fwd_kernel(const float* __restrict__ v,
   const int i = (int)(p / w);
   const int j = (int)(p - (int64_t)i * w);
   const int64_t base = n * 2 * hw;
-  step_fwd_pixel<true>(v + base, m + base, u + base, m_out + base,
-                       u_out + base, p, i, j, h, w, dt, r);
+  step_fwd_pixel(Planes{v + base, hw, w}, Planes{m + base, hw, w}, u + base,
+                 m_out + base, u_out + base, p, i, j, h, w, dt, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -165,12 +164,11 @@ __global__ void epdiff_step_fwd_kernel(const float* __restrict__ v,
 // g_v, g_m, g_u (6 planes); the function itself needs about 160 flops a
 // pixel. A gather that recomputes each source's coordinates for each of
 // the 25 pixels it might reach spends ~1,200-1,500 instructions a pixel and
-// is bound by instruction throughput, not bytes (the per-pixel
-// step_bwd_pixel below, which K3 ran before this design and K7's phase B
-// still runs).
+// is bound by instruction throughput, not bytes (K3's per-pixel body before
+// this design).
 //
-// Design (epdiff_step_bwd_tiled): a block of 256 threads owns a tile of
-// 32 x 16 output pixels of one item, two rows a thread, the item in
+// Design (bwd_tile, in epdiff_step_bwd_tiled): a block of 256 threads owns a
+// tile of 32 x 16 output pixels of one item, two rows a thread, the item in
 // blockIdx.z (looping past 65,535 items), so no thread divides to find its
 // pixel. It stages, with coalesced row loads clipped to the item's plane:
 //   - over the tile +- R, each source's record, computed once: the rows and
@@ -184,15 +182,15 @@ __global__ void epdiff_step_fwd_kernel(const float* __restrict__ v,
 // The gather reads one mask word per (d, e) (d, e = -R can hold no tap)
 // and a source's weights only where both masks hold the pixel, a few of
 // the (2R)^2; the thread's two rows share each mask read. The weights are
-// the values hat() forms, and the terms and their order are those of
-// step_bwd_pixel, so the sums are the same; an output differs from the
-// per-pixel kernel only where the compiler contracts an expression
-// differently (g_v, by up to 2 ulp). R = 1 and 2 (the radii
+// the values of the hat weights, and the terms and their order are those of
+// the per-pixel sums, so the sums are the same. R = 1 and 2 (the radii
 // expmap_shooting passes) are compiled with unrolled loops. Any other R
-// runs epdiff_step_bwd_chunked: the same tile, halo-1 planes and terms,
-// with the sources staged a chunk at a time, so any R fits shared memory
-// (R clipped to max(H, W), where the clamp at R - 1 and the clip act the
-// same).
+// runs bwd_tile_chunked (in epdiff_step_bwd_chunked): the same tile, halo-1
+// planes and terms, with the sources staged a chunk at a time, so any R
+// fits shared memory (R clipped to max(H, W), where the clamp at R - 1 and
+// the clip act the same). K7 runs the same two tile bodies on the rows of
+// its item that a block holds, with v read from its cluster's shared memory
+// (the V accessor) and g_v, g_m written there (the Out functor).
 //
 // What bounds it (PERF.md, from chip_smoke.py): latency and occupancy, not
 // instruction throughput. R = 1 (9 pairs a pixel) takes little less than
@@ -214,29 +212,6 @@ __device__ __forceinline__ float dT(float gm1, float g0, float gp1, int k,
   return base;
 }
 
-// The four products whose DyT the VJP needs, at pixel q of one item.
-struct DyArgs { float p1, p3, p5, p7; };
-// The four products whose DxT the VJP needs.
-struct DxArgs { float p2, p4, p6, p8; };
-
-__device__ __forceinline__ DyArgs dy_args(const float* v, const float* m,
-                                          const float* gm, int64_t hw,
-                                          int64_t q, float dt) {
-  const float a_y = -dt * __ldg(gm + q), a_x = -dt * __ldg(gm + hw + q);
-  const float my = __ldg(m + q), mx = __ldg(m + hw + q);
-  const float vy = v[q];
-  return {2.0f * a_y * my + a_x * mx, a_y * mx, a_y * vy, a_x * vy};
-}
-
-__device__ __forceinline__ DxArgs dx_args(const float* v, const float* m,
-                                          const float* gm, int64_t hw,
-                                          int64_t q, float dt) {
-  const float a_y = -dt * __ldg(gm + q), a_x = -dt * __ldg(gm + hw + q);
-  const float my = __ldg(m + q), mx = __ldg(m + hw + q);
-  const float vx = v[hw + q];
-  return {a_x * my, a_y * my + 2.0f * a_x * mx, a_y * vx, a_x * vx};
-}
-
 // Clamped, clipped sample coordinate of one axis: the near tap a0, the far
 // tap a1 = min(a0 + 1, n - 1) and the fraction f.
 struct Axis { int a0, a1; float f; };
@@ -247,108 +222,6 @@ __device__ __forceinline__ Axis axis_coord(int k, float b, float r, int n) {
   const float c0 = floorf(c);
   const int a0 = (int)c0;
   return {a0, min(a0 + 1, n - 1), c - c0};
-}
-
-// hat weight of tap index k for coordinate (a0, a1, f): both terms add
-// where a0 == a1 (warp_pallas.py:_hat)
-__device__ __forceinline__ float hat(int k, Axis a) {
-  return (k == a.a0 ? 1.0f - a.f : 0.0f) + (k == a.a1 ? a.f : 0.0f);
-}
-
-// K7's phase B at pixel (i, j) = p of one item (K3's body before its tiled
-// design): every pointer is at the item's (2, H, W) planes; v is read with
-// plain loads (see ldv).
-__device__ __forceinline__ void step_bwd_pixel(
-    const float* vb, const float* __restrict__ mb, const float* __restrict__ ub,
-    const float* __restrict__ gmb, const float* __restrict__ gub, float* gv,
-    float* gm, float* __restrict__ gu, int64_t p, int i, int j, int h, int w,
-    float dt, int R) {
-  const float r = (float)(R - 1);
-  const int64_t hw = (int64_t)h * w;
-  const float vy = vb[p], vx = vb[hw + p];
-  const float dvy_dy = ddy<false>(vb, i, j, h, w);
-  const float dvy_dx = ddx<false>(vb, i, j, w);
-  const float dvx_dy = ddy<false>(vb + hw, i, j, h, w);
-  const float dvx_dx = ddx<false>(vb + hw, i, j, w);
-  const float dmy_dy = ddy<true>(mb, i, j, h, w);
-  const float dmy_dx = ddx<true>(mb, i, j, w);
-  const float dmx_dy = ddy<true>(mb + hw, i, j, h, w);
-  const float dmx_dx = ddx<true>(mb + hw, i, j, w);
-  const float div = dvy_dy + dvx_dx;
-  const float gmy = __ldg(gmb + p), gmx = __ldg(gmb + hw + p);
-  const float guy = __ldg(gub + p), gux = __ldg(gub + hw + p);
-
-  // --- warp adjoint, this pixel as a source: d/d b through warp(u, b) -----
-  const float by = -dt * vy, bx = -dt * vx;
-  const Axis ay = axis_coord(i, by, r, h), ax = axis_coord(j, bx, r, w);
-  const float wmy = (fabsf(by) <= r && (float)i + by >= 0.0f
-                     && (float)i + by <= (float)(h - 1)) ? 1.0f : 0.0f;
-  const float wmx = (fabsf(bx) <= r && (float)j + bx >= 0.0f
-                     && (float)j + bx <= (float)(w - 1)) ? 1.0f : 0.0f;
-  const float sx = ax.a1 != ax.a0 ? 1.0f : 0.0f;
-  const float wy0 = 1.0f - ay.f, wx0 = 1.0f - ax.f;
-  const int64_t o00 = (int64_t)ay.a0 * w + ax.a0;
-  const int64_t o01 = (int64_t)ay.a0 * w + ax.a1;
-  const int64_t o10 = (int64_t)ay.a1 * w + ax.a0;
-  const int64_t o11 = (int64_t)ay.a1 * w + ax.a1;
-  const float gs[2] = {guy, gux};
-  float acc_dy = 0.0f, acc_dx = 0.0f;
-  for (int c = 0; c < 2; ++c) {               // column x0
-    const float a = __ldg(ub + c * hw + o00), b = __ldg(ub + c * hw + o10);
-    acc_dy += (wx0 * gs[c]) * (b - a);
-    acc_dx += (-sx * gs[c]) * (wy0 * a + ay.f * b);
-  }
-  for (int c = 0; c < 2; ++c) {               // column x1
-    const float a = __ldg(ub + c * hw + o01), b = __ldg(ub + c * hw + o11);
-    acc_dy += (ax.f * gs[c]) * (b - a);
-    acc_dx += (sx * gs[c]) * (wy0 * a + ay.f * b);
-  }
-  const float g_by = guy + acc_dy * wmy;
-  const float g_bx = gux + acc_dx * wmx;
-
-  // --- warp adjoint, this pixel as a tap: g_u by gathering its sources ----
-  float acc_gu[2] = {0.0f, 0.0f};
-  for (int e = -R; e <= R; ++e) {
-    const int js = j - e;
-    float be[2] = {0.0f, 0.0f};
-    if (js >= 0 && js < w) {
-      for (int d = -R; d <= R; ++d) {
-        const int is = i - d;
-        if (is < 0 || is >= h) continue;
-        const int64_t q = (int64_t)is * w + js;
-        const Axis sy = axis_coord(is, -dt * vb[q], r, h);
-        const Axis sxa = axis_coord(js, -dt * vb[hw + q], r, w);
-        const float hy = hat(i, sy), hx = hat(j, sxa);
-        be[0] += hy * (__ldg(gub + q) * hx);
-        be[1] += hy * (__ldg(gub + hw + q) * hx);
-      }
-    }
-    acc_gu[0] += be[0];
-    acc_gu[1] += be[1];
-  }
-  gu[p] = acc_gu[0];
-  gu[hw + p] = acc_gu[1];
-
-  // --- ad* adjoint ---------------------------------------------------------
-  const float a_y = -dt * gmy, a_x = -dt * gmx;
-  const DyArgs yc = dy_args(vb, mb, gmb, hw, p, dt);
-  const DyArgs yu = i > 0 ? dy_args(vb, mb, gmb, hw, p - w, dt) : yc;
-  const DyArgs yd = i < h - 1 ? dy_args(vb, mb, gmb, hw, p + w, dt) : yc;
-  const DxArgs xc = dx_args(vb, mb, gmb, hw, p, dt);
-  const DxArgs xl = j > 0 ? dx_args(vb, mb, gmb, hw, p - 1, dt) : xc;
-  const DxArgs xr = j < w - 1 ? dx_args(vb, mb, gmb, hw, p + 1, dt) : xc;
-  const float gv_y = dT(yu.p1, yc.p1, yd.p1, i, h) + dT(xl.p2, xc.p2, xr.p2, j, w)
-                     + a_y * dmy_dy + a_x * dmx_dy - dt * g_by;
-  const float gv_x = dT(yu.p3, yc.p3, yd.p3, i, h) + dT(xl.p4, xc.p4, xr.p4, j, w)
-                     + a_y * dmy_dx + a_x * dmx_dx - dt * g_bx;
-  const float gm_y = gmy + a_y * (dvy_dy + div) + a_x * dvy_dx
-                     + dT(yu.p5, yc.p5, yd.p5, i, h) + dT(xl.p6, xc.p6, xr.p6, j, w);
-  const float gm_x = gmx + a_y * dvx_dy + a_x * (dvx_dx + div)
-                     + dT(yu.p7, yc.p7, yd.p7, i, h) + dT(xl.p8, xc.p8, xr.p8, j, w);
-  gv[p] = gv_y;
-  gv[hw + p] = gv_x;
-  gm[p] = gm_y;
-  gm[hw + p] = gm_x;
 }
 
 // ---- K3, tiled -------------------------------------------------------------
@@ -373,8 +246,9 @@ __device__ __forceinline__ float d_stencil(float fm1, float f0, float fp1,
   return 0.5f * (fp1 - fm1);
 }
 
-// hat() of a source's near tap: 1 - f, or 1 - f + f where the clip puts
-// both taps on it (a0 == a1); its far tap weighs f
+// The hat weight of a source's near tap: 1 - f, or 1 - f + f where the clip
+// puts both taps on it (a0 == a1; warp_pallas.py:_hat adds both terms);
+// its far tap weighs f
 __device__ __forceinline__ float near_weight(Axis a) {
   return a.a1 == a.a0 ? (1.0f - a.f) + a.f : 1.0f - a.f;
 }
@@ -389,8 +263,9 @@ __device__ __forceinline__ void source_weights(Axis ay, Axis ax, float g0,
   g = make_float4(g0 * wnx, g0 * wfx, g1 * wnx, g1 * wfx);
 }
 
-// A halo-1 pixel q's entries: v, m and the products p1..p8 of dy_args and
-// dx_args (py: p1, p3, p5, p7; px: p2, p4, p6, p8)
+// A halo-1 pixel q's entries: v, m and the eight products p1..p8 whose
+// transposed stencils the VJP needs (py: p1, p3, p5, p7 under DyT; px: p2,
+// p4, p6, p8 under DxT)
 __device__ __forceinline__ void ad_products(float vy, float vx,
                                             const float* mb, const float* gmb,
                                             int64_t hw, int64_t q, float dt,
@@ -404,17 +279,36 @@ __device__ __forceinline__ void ad_products(float vy, float vx,
   px = make_float4(a_x * my, a_y * my + 2.0f * a_x * mx, a_y * vx, a_x * vx);
 }
 
-// K3's outputs at pixel (i, j) = p of the item at base, from its gathered
-// g_u (gu0, gu1): the warp's d/d b with this pixel as a source, from its
-// four taps of u (tap(y, x) is (u_y, u_x) at row y, column x), and the ad*
-// adjoint from the halo-1 planes around their entry c1.
-template <class TapU>
+// Where K3 puts its outputs: the item's g_v, g_m, g_u planes in device
+// memory, at pixel p.
+struct GlobalGrads {
+  float* gv;
+  float* gm;
+  float* gu;
+  int64_t hw;
+  __device__ __forceinline__ void operator()(int64_t p, int, int, float gvy,
+                                             float gvx, float gmy, float gmx,
+                                             float gu0, float gu1) const {
+    gv[p] = gvy;
+    gv[hw + p] = gvx;
+    gm[p] = gmy;
+    gm[hw + p] = gmx;
+    gu[p] = gu0;
+    gu[hw + p] = gu1;
+  }
+};
+
+// K3's outputs at pixel (i, j) = p of one item, from its gathered g_u (gu0,
+// gu1): the warp's d/d b with this pixel as a source, from its four taps of
+// u (tap(y, x) is (u_y, u_x) at row y, column x), and the ad* adjoint from
+// the halo-1 planes around their entry c1; out(p, i, j, g_v y, g_v x, g_m
+// y, g_m x, g_u y, g_u x) stores them.
+template <class TapU, class Out>
 __device__ __forceinline__ void bwd_outputs(
     const float2* s_v, const float2* s_m, const float4* s_py,
-    const float4* s_px, int c1, const float* gmb, const float* gub,
-    float* __restrict__ gv, float* __restrict__ gm, float* __restrict__ gu,
-    int64_t base, int64_t hw, int64_t p, int i, int j, int h, int w,
-    float dt, float r, float gu0, float gu1, TapU tap) {
+    const float4* s_px, int c1, const float* gmb, const float* gub, Out out,
+    int64_t hw, int64_t p, int i, int j, int h, int w, float dt, float r,
+    float gu0, float gu1, TapU tap) {
   const float2 vc = s_v[c1], mc = s_m[c1];
   const float2 vu = s_v[c1 - kW1], vd = s_v[c1 + kW1];
   const float2 vl = s_v[c1 - 1], vr = s_v[c1 + 1];
@@ -467,44 +361,42 @@ __device__ __forceinline__ void bwd_outputs(
   const float a_y = -dt * gmy, a_x = -dt * gmx;
   const float4 yc = s_py[c1], yu = s_py[c1 - kW1], yd = s_py[c1 + kW1];
   const float4 xc = s_px[c1], xl = s_px[c1 - 1], xr = s_px[c1 + 1];
-  gv[base + p] = dT(yu.x, yc.x, yd.x, i, h) + dT(xl.x, xc.x, xr.x, j, w)
-                 + a_y * dmy_dy + a_x * dmx_dy - dt * g_by;
-  gv[base + hw + p] = dT(yu.y, yc.y, yd.y, i, h)
-                      + dT(xl.y, xc.y, xr.y, j, w)
-                      + a_y * dmy_dx + a_x * dmx_dx - dt * g_bx;
-  gm[base + p] = gmy + a_y * (dvy_dy + div) + a_x * dvy_dx
-                 + dT(yu.z, yc.z, yd.z, i, h) + dT(xl.z, xc.z, xr.z, j, w);
-  gm[base + hw + p] = gmx + a_y * dvx_dy + a_x * (dvx_dx + div)
-                      + dT(yu.w, yc.w, yd.w, i, h)
-                      + dT(xl.w, xc.w, xr.w, j, w);
-  gu[base + p] = gu0;
-  gu[base + hw + p] = gu1;
+  out(p, i, j,
+      dT(yu.x, yc.x, yd.x, i, h) + dT(xl.x, xc.x, xr.x, j, w)
+          + a_y * dmy_dy + a_x * dmx_dy - dt * g_by,
+      dT(yu.y, yc.y, yd.y, i, h) + dT(xl.y, xc.y, xr.y, j, w)
+          + a_y * dmy_dx + a_x * dmx_dx - dt * g_bx,
+      gmy + a_y * (dvy_dy + div) + a_x * dvy_dx
+          + dT(yu.z, yc.z, yd.z, i, h) + dT(xl.z, xc.z, xr.z, j, w),
+      gmx + a_y * dvx_dy + a_x * (dvx_dx + div)
+          + dT(yu.w, yc.w, yd.w, i, h) + dT(xl.w, xc.w, xr.w, j, w),
+      gu0, gu1);
 }
 
-// The shared memory of the compiled-R kernel: over the tile +- R, rec_g and
+// The shared memory of the compiled-R tile: over the tile +- R, rec_g and
 // rec_w (source_weights), su (u_y, u_x) and rec_m (the tap masks); over the
 // tile +- 1, s_py, s_px, s_v and s_m (ad_products).
 template <int R>
-constexpr size_t bwd_smem_bytes() {
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
   return (size_t)(kBwdTileH + 2 * R) * (kBwdTileW + 2 * R) * 36
          + (size_t)kN1 * 48;
 }
 
-// K3 at a compiled radius R (1 or 2, the radii expmap_shooting passes).
-template <int R>
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
-epdiff_step_bwd_tiled(const float* __restrict__ v,
-                      const float* __restrict__ m,
-                      const float* __restrict__ u,
-                      const float* __restrict__ gmo,
-                      const float* __restrict__ guo, float* __restrict__ gv,
-                      float* __restrict__ gm, float* __restrict__ gu,
-                      int n_items, int h, int w, float dt) {
+// K3's tile at a compiled radius R (1 or 2, the radii expmap_shooting
+// passes): the 32 x 16 output pixels from (ty0, tx0) of one item, whose v
+// is vat(c, i, j) and whose m, u, gm', gu' planes are at mb, ub, gmb, gub;
+// out stores the outputs. Every thread of the block calls it; smem4 holds
+// bwd_smem_bytes<R>(). It ends with a barrier, so the next tile may stage.
+template <int R, class V, class Out>
+__device__ __forceinline__ void bwd_tile(float4* smem4, V vat,
+                                         const float* mb, const float* ub,
+                                         const float* gmb, const float* gub,
+                                         Out out, int tx0, int ty0, int h,
+                                         int w, float dt) {
   // a source's tap masks: bit o + R - 1 of the low half for a tap on row
   // is + o, o in [-(R - 1), R], of the high half for column js + o
   constexpr int kX = 16;
   constexpr int WR = kBwdTileW + 2 * R, NR = (kBwdTileH + 2 * R) * WR;
-  extern __shared__ float4 smem4[];
   float4* rec_g = smem4;
   float4* s_py = rec_g + NR;
   float4* s_px = s_py + kN1;
@@ -517,124 +409,253 @@ epdiff_step_bwd_tiled(const float* __restrict__ v,
   const float r = (float)(R - 1);
   const int64_t hw = (int64_t)h * w;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // --- staging: one halo position a thread, row-major; the trip count is
+  // a constant, so unrolled, the loads of every pass start before the
+  // first pass's arithmetic ---------------------------------------------
+#pragma unroll kStagingUnroll
+  for (int pass = 0; pass < (NR + kBwdThreads - 1) / kBwdThreads; ++pass) {
+    const int k = tid + pass * kBwdThreads;
+    if (k >= NR) break;
+    const int hr = k / WR, hc = k - hr * WR;
+    const int is = ty0 - R + hr, js = tx0 - R + hc;
+    const bool ring1 = hr >= R - 1 && hr <= R + kBwdTileH && hc >= R - 1
+                       && hc <= R + kBwdTileW;
+    uint32_t mk = 0;                       // off the plane: never a tap
+    float4 g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float2 wy = make_float2(0.0f, 0.0f), uu = wy, vv = wy, mm = wy;
+    float4 py = g, px = g;
+    if (is >= 0 && is < h && js >= 0 && js < w) {
+      const int64_t q = (int64_t)is * w + js;
+      const float vy = vat(0, is, js), vx = vat(1, is, js);
+      const Axis ay = axis_coord(is, -dt * vy, r, h);
+      const Axis ax = axis_coord(js, -dt * vx, r, w);
+      mk = (1u << (ay.a0 - is + R - 1)) | (1u << (ay.a1 - is + R - 1))
+           | (1u << (ax.a0 - js + R - 1 + kX))
+           | (1u << (ax.a1 - js + R - 1 + kX));
+      source_weights(ay, ax, __ldg(gub + q), __ldg(gub + hw + q), wy, g);
+      uu = make_float2(__ldg(ub + q), __ldg(ub + hw + q));
+      if (ring1) ad_products(vy, vx, mb, gmb, hw, q, dt, vv, mm, py, px);
+    }
+    rec_m[k] = mk;
+    rec_g[k] = g;
+    rec_w[k] = wy;
+    su[k] = uu;
+    if (ring1) {
+      const int k1 = (hr - R + 1) * kW1 + (hc - R + 1);
+      s_v[k1] = vv;
+      s_m[k1] = mm;
+      s_py[k1] = py;
+      s_px[k1] = px;
+    }
+  }
+  __syncthreads();
+
+  const int j = tx0 + lane;
+  const int lr0 = warp * kBwdRows;         // the thread's first tile row
+  // --- the gather of g_u, all kBwdRows rows at once. A tap lies at offset
+  // d, e in [-(R - 1), R] of its source (d, e = -R add only zeros). The
+  // sources' rows are walked from the lowest up, so each of the thread's
+  // rows sees d ascending, and each mask is read once. -------------------
+  float acc[kBwdRows][2];
+#pragma unroll
+  for (int k = 0; k < kBwdRows; ++k) acc[k][0] = acc[k][1] = 0.0f;
+#pragma unroll
+  for (int e = 1 - R; e <= R; ++e) {
+    float be[kBwdRows][2];
+#pragma unroll
+    for (int k = 0; k < kBwdRows; ++k) be[k][0] = be[k][1] = 0.0f;
+    const int hc = lane - e + R;           // the sources' halo column
+    const int xb = e + R - 1 + kX;         // their x bit for this pixel
+#pragma unroll
+    for (int t = 0; t < 2 * R + kBwdRows - 1; ++t) {
+      const int hr = lr0 + kBwdRows + 2 * R - 2 - t;
+      const int ks = hr * WR + hc;
+      const uint32_t mk = rec_m[ks];
+#pragma unroll
+      for (int k = 0; k < kBwdRows; ++k) {
+        const int d = t + k - kBwdRows - R + 2;  // row lr0 + k = hr - R + d
+        if (d < 1 - R || d > R) continue;
+        const int yb = d + R - 1;
+        const uint32_t want = (1u << yb) | (1u << xb);
+        if ((mk & want) != want) continue;
+        // the far tap is the one whose bit below is set
+        const bool far_y = yb > 0 && ((mk >> (yb - 1)) & 1u);
+        const bool far_x = xb > kX && ((mk >> (xb - 1)) & 1u);
+        const float2 wy = rec_w[ks];
+        const float4 g = rec_g[ks];
+        const float hy = far_y ? wy.y : wy.x;
+        be[k][0] += hy * (far_x ? g.y : g.x);
+        be[k][1] += hy * (far_x ? g.w : g.z);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBwdRows; ++k) {
+      acc[k][0] += be[k][0];
+      acc[k][1] += be[k][1];
+    }
+  }
+
+  const auto tap = [&](int y, int x) {     // every tap lies in tile +- R
+    return su[(y - ty0 + R) * WR + (x - tx0 + R)];
+  };
+#pragma unroll
+  for (int k = 0; k < kBwdRows; ++k) {
+    const int lr = lr0 + k, i = ty0 + lr;
+    if (i >= h || j >= w) continue;
+    bwd_outputs(s_v, s_m, s_py, s_px, (lr + 1) * kW1 + lane + 1, gmb, gub,
+                out, hw, (int64_t)i * w + j, i, j, h, w, dt, r, acc[k][0],
+                acc[k][1], tap);
+  }
+  __syncthreads();                  // before the next tile's staging
+}
+
+// The shared memory of the runtime-R tile (bwd_tile_chunked), carved from
+// one buffer of chunk_smem_bytes().
+struct ChunkSmem {
+  float4 *s_py, *s_px, *c_g;
+  float2 *s_v, *s_m, *c_w;
+  // the near taps' offsets, doubled, plus 1 where a far tap lies beyond
+  int2* c_t;
+  __device__ explicit ChunkSmem(float4* base)
+      : s_py(base), s_px(base + kN1), c_g(base + 2 * kN1),
+        s_v(reinterpret_cast<float2*>(c_g + kChunkH * kChunkW)),
+        s_m(s_v + kN1), c_w(s_m + kN1),
+        c_t(reinterpret_cast<int2*>(c_w + kChunkH * kChunkW)) {}
+};
+
+__host__ __device__ constexpr size_t chunk_smem_bytes() {
+  return (size_t)kN1 * 48 + (size_t)kChunkH * kChunkW * 32;
+}
+
+// K3's tile at any other radius R >= 1, given at run time. The tile's
+// sources (tile +- R, clipped to the plane) outgrow shared memory as R
+// grows, so they are staged kChunkH x kChunkW at a time, chunks from the
+// right and from the bottom, and each thread gathers from a chunk before the
+// next replaces it: for each of its pixels e still ascends over the chunks'
+// columns and d over each column's rows. A source's taps are kept as
+// offsets, not bit masks, so any R fits, and a pixel's own taps of u are
+// read from device memory. Arguments as bwd_tile's; it ends with a barrier.
+template <class V, class Out>
+__device__ __forceinline__ void bwd_tile_chunked(
+    ChunkSmem sm, V vat, const float* mb, const float* ub, const float* gmb,
+    const float* gub, Out out, int tx0, int ty0, int h, int w, float dt,
+    int R) {
+  const float r = (float)(R - 1);
+  const int64_t hw = (int64_t)h * w;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = tx0 + lane, i0 = ty0 + warp * kBwdRows;
+  const int r_lo = max(ty0 - R, 0), r_hi = min(ty0 + kBwdTileH + R, h);
+  const int c_lo = max(tx0 - R, 0), c_hi = min(tx0 + kBwdTileW + R, w);
+
+  for (int k = tid; k < kN1; k += kBwdThreads) {   // the halo-1 planes
+    const int hr = k / kW1, hc = k - hr * kW1;
+    const int is = ty0 - 1 + hr, js = tx0 - 1 + hc;
+    float2 vv = make_float2(0.0f, 0.0f), mm = vv;
+    float4 py = make_float4(0.0f, 0.0f, 0.0f, 0.0f), px = py;
+    if (is >= 0 && is < h && js >= 0 && js < w) {
+      const int64_t q = (int64_t)is * w + js;
+      ad_products(vat(0, is, js), vat(1, is, js), mb, gmb, hw, q, dt, vv,
+                  mm, py, px);
+    }
+    sm.s_v[k] = vv;
+    sm.s_m[k] = mm;
+    sm.s_py[k] = py;
+    sm.s_px[k] = px;
+  }
+
+  float acc[kBwdRows][2] = {};
+  for (int cc = c_hi; cc > c_lo; cc -= kChunkW) {
+    const int sc0 = max(cc - kChunkW, c_lo);
+    for (int rc = r_hi; rc > r_lo; rc -= kChunkH) {
+      const int sr0 = max(rc - kChunkH, r_lo);
+      __syncthreads();              // the last chunk's gather is done
+      for (int k = tid; k < kChunkH * kChunkW; k += kBwdThreads) {
+        const int is = sr0 + k / kChunkW, js = sc0 + k % kChunkW;
+        if (is >= rc || js >= cc) continue;
+        const int64_t q = (int64_t)is * w + js;
+        const Axis ay = axis_coord(is, -dt * vat(0, is, js), r, h);
+        const Axis ax = axis_coord(js, -dt * vat(1, is, js), r, w);
+        sm.c_t[k] = make_int2(2 * (ay.a0 - is) + (ay.a1 != ay.a0 ? 1 : 0),
+                              2 * (ax.a0 - js) + (ax.a1 != ax.a0 ? 1 : 0));
+        source_weights(ay, ax, __ldg(gub + q), __ldg(gub + hw + q),
+                       sm.c_w[k], sm.c_g[k]);
+      }
+      __syncthreads();
+      // the chunk's sources within reach of this thread's pixels (e, d in
+      // [1 - R, R]): columns from the right (e ascending), rows from the
+      // bottom (d ascending)
+      const int x_hi = min(j + R - 1, cc - 1), x_lo = max(j - R, sc0);
+      const int y_hi = min(i0 + kBwdRows + R - 2, rc - 1);
+      const int y_lo = max(i0 - R, sr0);
+      for (int js = x_hi; js >= x_lo; --js) {
+        const int e = j - js;
+        float be[kBwdRows][2] = {};
+        for (int is = y_hi; is >= y_lo; --is) {
+          const int ks = (is - sr0) * kChunkW + (js - sc0);
+          const int2 t = sm.c_t[ks];
+          const int oy = t.x >> 1, ox = t.y >> 1;
+          const bool far_x = e != ox;
+          if (far_x && !((t.y & 1) && e == ox + 1)) continue;
+#pragma unroll
+          for (int k = 0; k < kBwdRows; ++k) {
+            const int d = i0 + k - is;
+            const bool far_y = d != oy;
+            if (far_y && !((t.x & 1) && d == oy + 1)) continue;
+            const float2 wy = sm.c_w[ks];
+            const float4 g = sm.c_g[ks];
+            const float hy = far_y ? wy.y : wy.x;
+            be[k][0] += hy * (far_x ? g.y : g.x);
+            be[k][1] += hy * (far_x ? g.w : g.z);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kBwdRows; ++k) {
+          acc[k][0] += be[k][0];
+          acc[k][1] += be[k][1];
+        }
+      }
+    }
+  }
+
+  const auto tap = [&](int y, int x) {
+    const int64_t o = (int64_t)y * w + x;
+    return make_float2(__ldg(ub + o), __ldg(ub + hw + o));
+  };
+#pragma unroll
+  for (int k = 0; k < kBwdRows; ++k) {
+    const int lr = warp * kBwdRows + k, i = ty0 + lr;
+    if (i >= h || j >= w) continue;
+    bwd_outputs(sm.s_v, sm.s_m, sm.s_py, sm.s_px, (lr + 1) * kW1 + lane + 1,
+                gmb, gub, out, hw, (int64_t)i * w + j, i, j, h, w, dt, r,
+                acc[k][0], acc[k][1], tap);
+  }
+  __syncthreads();                  // before the next tile's staging
+}
+
+// K3 at a compiled radius R (1 or 2).
+template <int R>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+epdiff_step_bwd_tiled(const float* __restrict__ v,
+                      const float* __restrict__ m,
+                      const float* __restrict__ u,
+                      const float* __restrict__ gmo,
+                      const float* __restrict__ guo, float* __restrict__ gv,
+                      float* __restrict__ gm, float* __restrict__ gu,
+                      int n_items, int h, int w, float dt) {
+  extern __shared__ float4 smem4[];
+  const int64_t hw = (int64_t)h * w;
   const int tx0 = blockIdx.x * kBwdTileW, ty0 = blockIdx.y * kBwdTileH;
   for (int n = blockIdx.z; n < n_items; n += gridDim.z) {
     const int64_t base = (int64_t)n * 2 * hw;
-    const float* vb = v + base;
-    const float* mb = m + base;
-    const float* ub = u + base;
-    const float* gmb = gmo + base;
-    const float* gub = guo + base;
-
-    // --- staging: one halo position a thread, row-major; the trip count
-    // is a constant, so unrolled, the loads of every pass start before the
-    // first pass's arithmetic -------------------------------------------
-#pragma unroll kStagingUnroll
-    for (int pass = 0; pass < (NR + kBwdThreads - 1) / kBwdThreads; ++pass) {
-      const int k = tid + pass * kBwdThreads;
-      if (k >= NR) break;
-      const int hr = k / WR, hc = k - hr * WR;
-      const int is = ty0 - R + hr, js = tx0 - R + hc;
-      const bool ring1 = hr >= R - 1 && hr <= R + kBwdTileH && hc >= R - 1
-                         && hc <= R + kBwdTileW;
-      uint32_t mk = 0;                       // off the plane: never a tap
-      float4 g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float2 wy = make_float2(0.0f, 0.0f), uu = wy, vv = wy, mm = wy;
-      float4 py = g, px = g;
-      if (is >= 0 && is < h && js >= 0 && js < w) {
-        const int64_t q = (int64_t)is * w + js;
-        const float vy = __ldg(vb + q), vx = __ldg(vb + hw + q);
-        const Axis ay = axis_coord(is, -dt * vy, r, h);
-        const Axis ax = axis_coord(js, -dt * vx, r, w);
-        mk = (1u << (ay.a0 - is + R - 1)) | (1u << (ay.a1 - is + R - 1))
-             | (1u << (ax.a0 - js + R - 1 + kX))
-             | (1u << (ax.a1 - js + R - 1 + kX));
-        source_weights(ay, ax, __ldg(gub + q), __ldg(gub + hw + q), wy, g);
-        uu = make_float2(__ldg(ub + q), __ldg(ub + hw + q));
-        if (ring1) ad_products(vy, vx, mb, gmb, hw, q, dt, vv, mm, py, px);
-      }
-      rec_m[k] = mk;
-      rec_g[k] = g;
-      rec_w[k] = wy;
-      su[k] = uu;
-      if (ring1) {
-        const int k1 = (hr - R + 1) * kW1 + (hc - R + 1);
-        s_v[k1] = vv;
-        s_m[k1] = mm;
-        s_py[k1] = py;
-        s_px[k1] = px;
-      }
-    }
-    __syncthreads();
-
-    const int j = tx0 + lane;
-    const int lr0 = warp * kBwdRows;         // the thread's first tile row
-    // --- the gather of g_u, all kBwdRows rows at once. A tap lies at
-    // offset d, e in [-(R - 1), R] of its source (d, e = -R add only
-    // zeros). The sources' rows are walked from the lowest up, so each of
-    // the thread's rows sees d ascending, and each mask is read once. ----
-    float acc[kBwdRows][2];
-#pragma unroll
-    for (int k = 0; k < kBwdRows; ++k) acc[k][0] = acc[k][1] = 0.0f;
-#pragma unroll
-    for (int e = 1 - R; e <= R; ++e) {
-      float be[kBwdRows][2];
-#pragma unroll
-      for (int k = 0; k < kBwdRows; ++k) be[k][0] = be[k][1] = 0.0f;
-      const int hc = lane - e + R;           // the sources' halo column
-      const int xb = e + R - 1 + kX;         // their x bit for this pixel
-#pragma unroll
-      for (int t = 0; t < 2 * R + kBwdRows - 1; ++t) {
-        const int hr = lr0 + kBwdRows + 2 * R - 2 - t;
-        const int ks = hr * WR + hc;
-        const uint32_t mk = rec_m[ks];
-#pragma unroll
-        for (int k = 0; k < kBwdRows; ++k) {
-          const int d = t + k - kBwdRows - R + 2;  // row lr0 + k = hr - R + d
-          if (d < 1 - R || d > R) continue;
-          const int yb = d + R - 1;
-          const uint32_t want = (1u << yb) | (1u << xb);
-          if ((mk & want) != want) continue;
-          // the far tap is the one whose bit below is set
-          const bool far_y = yb > 0 && ((mk >> (yb - 1)) & 1u);
-          const bool far_x = xb > kX && ((mk >> (xb - 1)) & 1u);
-          const float2 wy = rec_w[ks];
-          const float4 g = rec_g[ks];
-          const float hy = far_y ? wy.y : wy.x;
-          be[k][0] += hy * (far_x ? g.y : g.x);
-          be[k][1] += hy * (far_x ? g.w : g.z);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kBwdRows; ++k) {
-        acc[k][0] += be[k][0];
-        acc[k][1] += be[k][1];
-      }
-    }
-
-    const auto tap = [&](int y, int x) {     // every tap lies in tile +- R
-      return su[(y - ty0 + R) * WR + (x - tx0 + R)];
-    };
-#pragma unroll
-    for (int k = 0; k < kBwdRows; ++k) {
-      const int lr = lr0 + k, i = ty0 + lr;
-      if (i >= h || j >= w) continue;
-      bwd_outputs(s_v, s_m, s_py, s_px, (lr + 1) * kW1 + lane + 1, gmb, gub,
-                  gv, gm, gu, base, hw, (int64_t)i * w + j, i, j, h, w, dt,
-                  r, acc[k][0], acc[k][1], tap);
-    }
-    __syncthreads();                  // before the next item's staging
+    bwd_tile<R>(smem4, Planes{v + base, hw, w}, m + base, u + base,
+                gmo + base, guo + base,
+                GlobalGrads{gv + base, gm + base, gu + base, hw}, tx0, ty0,
+                h, w, dt);
   }
 }
 
-// K3 at any other radius R >= 1, given at run time. The tile's sources
-// (tile +- R, clipped to the plane) outgrow shared memory as R grows, so
-// they are staged kChunkH x kChunkW at a time, chunks from the right and
-// from the bottom, and each thread gathers from a chunk before the next
-// replaces it: for each of its pixels e still ascends over the chunks'
-// columns and d over each column's rows. A source's taps are kept as
-// offsets, not bit masks, so any R fits, and a pixel's own taps of u are
-// read from global memory.
+// K3 at any other radius (bwd_tile_chunked).
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 epdiff_step_bwd_chunked(const float* __restrict__ v,
                         const float* __restrict__ m,
@@ -643,109 +664,15 @@ epdiff_step_bwd_chunked(const float* __restrict__ v,
                         const float* __restrict__ guo, float* __restrict__ gv,
                         float* __restrict__ gm, float* __restrict__ gu,
                         int n_items, int h, int w, float dt, int R) {
-  __shared__ float4 s_py[kN1], s_px[kN1], c_g[kChunkH * kChunkW];
-  __shared__ float2 s_v[kN1], s_m[kN1], c_w[kChunkH * kChunkW];
-  // the near taps' offsets, doubled, plus 1 where a far tap lies beyond
-  __shared__ int2 c_t[kChunkH * kChunkW];
-
-  const float r = (float)(R - 1);
+  __shared__ float4 smem4[chunk_smem_bytes() / sizeof(float4)];
   const int64_t hw = (int64_t)h * w;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx0 = blockIdx.x * kBwdTileW, ty0 = blockIdx.y * kBwdTileH;
-  const int j = tx0 + lane, i0 = ty0 + warp * kBwdRows;
-  const int r_lo = max(ty0 - R, 0), r_hi = min(ty0 + kBwdTileH + R, h);
-  const int c_lo = max(tx0 - R, 0), c_hi = min(tx0 + kBwdTileW + R, w);
   for (int n = blockIdx.z; n < n_items; n += gridDim.z) {
     const int64_t base = (int64_t)n * 2 * hw;
-    const float* vb = v + base;
-    const float* mb = m + base;
-    const float* ub = u + base;
-    const float* gmb = gmo + base;
-    const float* gub = guo + base;
-
-    for (int k = tid; k < kN1; k += kBwdThreads) {   // the halo-1 planes
-      const int hr = k / kW1, hc = k - hr * kW1;
-      const int is = ty0 - 1 + hr, js = tx0 - 1 + hc;
-      float2 vv = make_float2(0.0f, 0.0f), mm = vv;
-      float4 py = make_float4(0.0f, 0.0f, 0.0f, 0.0f), px = py;
-      if (is >= 0 && is < h && js >= 0 && js < w) {
-        const int64_t q = (int64_t)is * w + js;
-        ad_products(__ldg(vb + q), __ldg(vb + hw + q), mb, gmb, hw, q, dt,
-                    vv, mm, py, px);
-      }
-      s_v[k] = vv;
-      s_m[k] = mm;
-      s_py[k] = py;
-      s_px[k] = px;
-    }
-
-    float acc[kBwdRows][2] = {};
-    for (int cc = c_hi; cc > c_lo; cc -= kChunkW) {
-      const int sc0 = max(cc - kChunkW, c_lo);
-      for (int rc = r_hi; rc > r_lo; rc -= kChunkH) {
-        const int sr0 = max(rc - kChunkH, r_lo);
-        __syncthreads();              // the last chunk's gather is done
-        for (int k = tid; k < kChunkH * kChunkW; k += kBwdThreads) {
-          const int is = sr0 + k / kChunkW, js = sc0 + k % kChunkW;
-          if (is >= rc || js >= cc) continue;
-          const int64_t q = (int64_t)is * w + js;
-          const Axis ay = axis_coord(is, -dt * __ldg(vb + q), r, h);
-          const Axis ax = axis_coord(js, -dt * __ldg(vb + hw + q), r, w);
-          c_t[k] = make_int2(2 * (ay.a0 - is) + (ay.a1 != ay.a0 ? 1 : 0),
-                             2 * (ax.a0 - js) + (ax.a1 != ax.a0 ? 1 : 0));
-          source_weights(ay, ax, __ldg(gub + q), __ldg(gub + hw + q), c_w[k],
-                         c_g[k]);
-        }
-        __syncthreads();
-        // the chunk's sources within reach of this thread's pixels (e, d in
-        // [1 - R, R]): columns from the right (e ascending), rows from the
-        // bottom (d ascending)
-        const int x_hi = min(j + R - 1, cc - 1), x_lo = max(j - R, sc0);
-        const int y_hi = min(i0 + kBwdRows + R - 2, rc - 1);
-        const int y_lo = max(i0 - R, sr0);
-        for (int js = x_hi; js >= x_lo; --js) {
-          const int e = j - js;
-          float be[kBwdRows][2] = {};
-          for (int is = y_hi; is >= y_lo; --is) {
-            const int ks = (is - sr0) * kChunkW + (js - sc0);
-            const int2 t = c_t[ks];
-            const int oy = t.x >> 1, ox = t.y >> 1;
-            const bool far_x = e != ox;
-            if (far_x && !((t.y & 1) && e == ox + 1)) continue;
-#pragma unroll
-            for (int k = 0; k < kBwdRows; ++k) {
-              const int d = i0 + k - is;
-              const bool far_y = d != oy;
-              if (far_y && !((t.x & 1) && d == oy + 1)) continue;
-              const float2 wy = c_w[ks];
-              const float4 g = c_g[ks];
-              const float hy = far_y ? wy.y : wy.x;
-              be[k][0] += hy * (far_x ? g.y : g.x);
-              be[k][1] += hy * (far_x ? g.w : g.z);
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < kBwdRows; ++k) {
-            acc[k][0] += be[k][0];
-            acc[k][1] += be[k][1];
-          }
-        }
-      }
-    }
-
-    const auto tap = [&](int y, int x) {
-      const int64_t o = (int64_t)y * w + x;
-      return make_float2(__ldg(ub + o), __ldg(ub + hw + o));
-    };
-#pragma unroll
-    for (int k = 0; k < kBwdRows; ++k) {
-      const int lr = warp * kBwdRows + k, i = ty0 + lr;
-      if (i >= h || j >= w) continue;
-      bwd_outputs(s_v, s_m, s_py, s_px, (lr + 1) * kW1 + lane + 1, gmb, gub,
-                  gv, gm, gu, base, hw, (int64_t)i * w + j, i, j, h, w, dt,
-                  r, acc[k][0], acc[k][1], tap);
-    }
-    __syncthreads();                  // before the next item's staging
+    bwd_tile_chunked(ChunkSmem(smem4), Planes{v + base, hw, w}, m + base,
+                     u + base, gmo + base, guo + base,
+                     GlobalGrads{gv + base, gm + base, gu + base, hw}, tx0,
+                     ty0, h, w, dt, R);
   }
 }
 
@@ -772,7 +699,6 @@ cudaError_t launch_bwd_tiled(const float* v, const float* m, const float* u,
   return cudaGetLastError();
 }
 
-
 // ---------------------------------------------------------------------------
 // K6 and K7: the step with the fluid-metric solve inside the kernel.
 //
@@ -784,160 +710,605 @@ cudaError_t launch_bwd_tiled(const float* v, const float* m, const float* u,
 //
 // K6 computes (m, u) -> (m', u') as K2 does on that v, and K7 computes
 // (m, u, gm', gu') -> (g_m + K g_v, g_u) from K3's (g_v, g_m, g_u) on the
-// recomputed v (K is self-adjoint). No v leaves the kernel and none is saved
-// for the backward, as on the TPU.
+// recomputed v (K is self-adjoint). Neither v nor g_v leaves the kernel,
+// and nothing is saved for the backward, as on the TPU.
 //
-// Bound on the H100: f32 operations. The solve is four (S x S)(S x S)
-// products per channel, 4 H W (H + W) flops: K6 solves 2 planes, K7 4, so
-// at the flagship's 64^2 items the solve is ~96% of the arithmetic and
-// about 35 flops for every byte each kernel must move.
+// What bounds them on the H100: a solve is four products, 4 H W (H + W)
+// flops a channel (K6 solves 2 planes an item, K7 4). At the flagship's
+// 64^2 items that is about 35 flops for every byte a kernel must move:
+// above the f32 CUDA cores' balance (67 TFLOP/s over 3.35 TB/s, 20 flops a
+// byte), below the TF32 tensor cores' (495 over 3.35, 148) even at three
+// products each (3xTF32). On the tensor cores the bound is bytes (K6 at
+// 64^2) or the products (the rest), and neither is what holds the kernels
+// back: each block runs a chain of a dozen dependent phases (four products
+// a solve, each a staging round trip, a barrier and a short k loop; the
+// cluster barriers; phase B), with about 1.5 blocks resident an SM, so
+// latency and instruction issue set the time (PERF.md, from chip_smoke.py
+// and tools/k6k7_phases.py).
 //
-// Design (simple and right first): one block of 256 threads per item, so
-// that __syncthreads() orders every phase of the item. Phase A runs the
-// four products per channel as a shared-memory tiled f32 GEMM (64 x 64
-// output tiles, 16-deep k tiles, a 4 x 4 register tile a thread, fmaf on
-// the CUDA cores: no tensor cores, hence no TF32, and no library GEMM).
-// The intermediates and v live in a per-item global scratch buffer that
-// only the item's own block writes and reads (L1/L2-resident at these
-// sizes; a 128^2 item does not fit shared memory), read with plain loads,
-// never __ldg. Phase B runs K2's (K6) or K3's (K7) per-pixel body over the
-// item's pixels, reading v from the scratch; K7 writes g_v there and phase C
-// applies the same four products to it and adds the result to g_m.
+// Design:
+//  - A cluster of CL = ceil(H / 16) blocks an item (at most 8); the block of
+//    rank b owns rows 16 b .. 16 b + 15 of the item (the last band may be
+//    ragged), so 190 items of 64^2 run as 760 blocks, not 190.
+//  - The products run on the tensor cores (mma.sync m16n8k8 in TF32) in
+//    3xTF32: each f32 operand splits into hi (rounded to TF32) and lo = x -
+//    hi, and three f32 accumulators take lo hi, hi lo and hi hi, which keeps
+//    f32-level accuracy (the plain version's products are full f32; one
+//    TF32 product keeps about three digits). A band is one 16-row tile;
+//    each warp owns 8-column tiles of both channels at once, so the operand
+//    the channels share (Ty or Tx) is read once for both. The k order is
+//    fixed, so two launches give the same bits.
+//  - Operands go through shared memory: the A band from device memory once
+//    a product; B up to 64 rows at a time (band_mm's chunk), by cp.async
+//    from device memory or, from the cluster, a band buffer at a time.
+//  - Products 1, 2, the weight and 4 are row-local: a block forms its band
+//    of Ty m (m read from device memory), of (P1 Tx^T) * W and of P3 Tx.
+//    Product 3, Ty^T P2, needs every row of P2: after a cluster barrier a
+//    block copies the other blocks' bands of P2 from their shared memory
+//    (distributed shared memory). v stays in shared memory, in bands.
+//  - Phase B: K6 runs K2's per-pixel body on its band, reading v from its
+//    shared memory with the neighbours' edge rows copied beside it
+//    (HaloBand); K7 runs K3's tile bodies (bwd_tile; bwd_tile_chunked
+//    beyond R = 2) on its band's 32 x 16 tiles, reading v through
+//    ClusterPlanes (the halo of R + 1 rows from the neighbours), and keeps
+//    g_v and K3's g_m in shared memory. The rows of u (and gm', gu') that
+//    phase B reads are prefetched into L2 while the products run.
+//  - Phase C (K7): g_m += K g_v by the same four products, product 1 now
+//    reading g_v across the cluster; only the sum goes to device memory.
+// The wrappers allocate no workspace: the C entries keep the scratch
+// argument of the earlier design, unused, so that a build of that design
+// is timed through the same call.
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;     // output tile side
-constexpr int kDepth = 16;    // k tile depth
-constexpr int kPad = kTile + 1;
+constexpr int kThreads = kBwdThreads;    // K3's tile bodies run inside K7
+constexpr int kWarps = kThreads / 32;
+constexpr int kBand = kBwdTileH;         // the rows of an item a block owns
+constexpr int kMaxSide = 128;            // epdiff_pallas._MAX_SOLVE_SIDE
 
-// C (M x N, row-major) = A (M x K) B (K x N) on one block, where element
-// (i, k) of A is A[i * sai + k * sak] and (k, j) of B is B[k * sbk + j * sbj]
-// (so a transpose is a swap of strides). With wgt, C = (A B) * wgt
-// elementwise; with accumulate, C += A B. The sums run over k in ascending
-// order, one fmaf each. Every thread of the block must call it; it begins
-// with a __syncthreads(), so the products' inputs written earlier by the
-// block are visible, and ends with one, so its output is.
-__device__ void block_mm(const float* A, int sai, int sak, const float* B,
-                         int sbk, int sbj, const float* wgt, float* C,
-                         bool accumulate, int M, int N, int K, float* smA,
-                         float* smB) {
+// The row pitch of a band buffer: W rounded up to 8, plus 4, so that the 32
+// reads of an A fragment fall in 32 banks.
+__host__ __device__ constexpr int band_pitch(int w) {
+  return ((w + 7) & ~7) + 4;
+}
+// The floats of a band buffer: both channels' kBand rows.
+__host__ __device__ constexpr int band_floats(int w) {
+  return 2 * kBand * band_pitch(w);
+}
+// The blocks of an item's cluster.
+__host__ __device__ constexpr int solve_cluster(int h) {
+  return (h + kBand - 1) / kBand;
+}
+
+// The block's share of its item: item n, rank in the cluster, rows row0 ..
+// row0 + rows - 1.
+struct Band { int n, rank, row0, rows; };
+
+__device__ __forceinline__ Band band_of(int h) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = rank * kBand;
+  return {(int)(blockIdx.x / cluster.num_blocks()), rank, row0,
+          max(0, min(kBand, h - row0))};
+}
+
+// A (2, H, W) pair of planes of one item that its cluster keeps in bands:
+// the block of rank b holds rows kBand b .. kBand b + kBand - 1 of both
+// channels in its own buffer at the same offset (own). row(i) is channel
+// 0's row i; f(c, i, j) reads another block's rows through distributed
+// shared memory.
+struct ClusterPlanes {
+  float* own;
+  int rank, pitch;
+  __device__ __forceinline__ const float* row(int i) const {
+    const int b = i / kBand;
+    const float* base =
+        b == rank ? own : cg::this_cluster().map_shared_rank(own, b);
+    return base + (i - b * kBand) * pitch;
+  }
+  __device__ __forceinline__ float operator()(int c, int i, int j) const {
+    return row(i)[c * kBand * pitch + j];
+  }
+};
+
+// An operand of band_mm in one piece of memory: element (r, q) of channel c
+// at p[c * cs + r * rs + q * qs].
+struct View {
+  const float* p;
+  int cs, rs, qs;
+};
+
+// hi = x rounded to TF32 (to nearest, ties away from zero: half the
+// weight of the 13 bits below TF32's 10 mantissa bits added, then those
+// bits cleared; x finite), lo = x - hi, exact. The mma reads lo's top 10
+// mantissa bits, so hi + lo is x to about 2^-21 of x. Three instructions;
+// cvt.rna.tf32.f32 takes about ten, as it also handles inf and NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b on one 16 x 8 tile with k = 8: TF32 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Asynchronous copies of one f32, or of 16 aligned bytes, from device
+// memory to shared memory (cp.async; cp_async_wait waits for all of the
+// thread's).
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Brings rows lo .. hi - 1 (clipped to the plane's h rows) of both
+// channels of an item's (2, H, W) planes at p into L2, a 128-byte line a
+// thread, so that a later phase finds them there.
+__device__ __forceinline__ void prefetch_rows(const float* p, int64_t hw,
+                                              int w, int h, int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, h);
+  const int len = (hi - lo) * w;
+  for (int c = 0; c < 2; ++c)
+    for (int o = threadIdx.x * 32; o < len; o += kThreads * 32)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(
+          p + c * hw + (int64_t)lo * w + o));
+}
+
+// Copies element (c, r, q) of v (c < nc, r < nr, q < nq) from device memory
+// to dst[(c * crows + r) * pitch + q] (pitch a multiple of 4) by cp.async,
+// not waited for. Where v's columns are contiguous a warp's lanes take
+// consecutive columns, 16 bytes a copy where v's rows and channels start on
+// 16 bytes and nq is a multiple of 4; where its rows are contiguous,
+// consecutive rows (nr <= 16).
+__device__ __forceinline__ void stage_view(View v, int nc, int nr, int nq,
+                                           float* dst, int crows,
+                                           int pitch) {
   const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  for (int m0 = 0; m0 < M; m0 += kTile) {
-    for (int n0 = 0; n0 < N; n0 += kTile) {
-      float acc[4][4];
-      for (int a = 0; a < 4; ++a)
-        for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-      for (int k0 = 0; k0 < K; k0 += kDepth) {
-        __syncthreads();
-        for (int l = 0; l < kDepth * kTile / kThreads; ++l) {
-          const int e = tid + kThreads * l;
-          // the index that is contiguous in memory varies fastest
-          int k = sak == 1 ? e % kDepth : e / kTile;
-          const int mi = sak == 1 ? e / kDepth : e % kTile;
-          int gk = k0 + k, gi = m0 + mi;
-          smA[k * kPad + mi] = (gi < M && gk < K)
-              ? A[(int64_t)gi * sai + (int64_t)gk * sak] : 0.0f;
-          k = sbk == 1 ? e % kDepth : e / kTile;
-          const int nj = sbk == 1 ? e / kDepth : e % kTile;
-          gk = k0 + k;
-          const int gj = n0 + nj;
-          smB[k * kPad + nj] = (gj < N && gk < K)
-              ? B[(int64_t)gk * sbk + (int64_t)gj * sbj] : 0.0f;
-        }
-        __syncthreads();
+  if (v.qs == 1) {
+    if (nq % 4 == 0 && v.rs % 4 == 0 && v.cs % 4 == 0
+        && (reinterpret_cast<uintptr_t>(v.p) & 15) == 0) {
+      const int nq4 = nq / 4;
+      const int span = nq4 > 16 ? 32 : nq4 > 8 ? 16 : nq4 > 4 ? 8 : 4;
+      const int q = (tid & (span - 1)) * 4;
+      if (q >= nq) return;
+      for (int c = 0; c < nc; ++c)
+        for (int r = tid / span; r < nr; r += kThreads / span)
+          cp_async_16(dst + (c * crows + r) * pitch + q,
+                      v.p + c * v.cs + r * v.rs + q);
+      return;
+    }
+    const int span = nq > 64 ? 128 : nq > 32 ? 64 : 32;
+    const int q = tid & (span - 1);
+    if (q >= nq) return;
+    for (int c = 0; c < nc; ++c)
+      for (int r = tid / span; r < nr; r += kThreads / span)
+        cp_async_f32(dst + (c * crows + r) * pitch + q,
+                     v.p + c * v.cs + r * v.rs + q);
+  } else {
+    const int r = tid % kBand;
+    if (r >= nr) return;
+    for (int c = 0; c < nc; ++c)
+      for (int q = tid / kBand; q < nq; q += kThreads / kBand)
+        cp_async_f32(dst + (c * crows + r) * pitch + q,
+                     v.p + c * v.cs + r * v.rs + q * v.qs);
+  }
+}
+
+// How band_mm keeps the rows c0 .. c0 + kBand nb - 1 of its B in chunk:
+//  kRows: B read from device memory by rows: element (c, kk, j) at
+//    (c kBand nb + kk) pitch + j, pitch = band_pitch(n);
+//  kCols: B = Tx^T, read from device memory by Tx's rows: (kk, j) at
+//    j pitchT + kk, pitchT = band_pitch(kBand nb);
+//  kBands: B kept in bands by the cluster (ClusterPlanes), copied a band
+//    buffer at a time: (c, kk, j) at ((kk / kBand * 2 + c) kBand + kk %
+//    kBand) pitch + j.
+enum ChunkLayout { kRows, kCols, kBands };
+
+// Stages rows c0 .. c0 + kBand nb - 1 (those < k) of b (NC channels, n
+// columns) into chunk, laid out as L says: from device memory by cp.async;
+// from the cluster's bands (c0 a multiple of kBand, nb band_pitch(n) <=
+// kMaxChunkPitch) through distributed shared memory, 16 bytes a load, every
+// load before the first store. Complete after cp_async_wait() and a
+// barrier.
+constexpr int kMaxChunkPitch = 272;      // 4 bands of pitch 68, 2 of 132
+
+template <int NC, ChunkLayout L>
+__device__ __forceinline__ void stage_rows(View b, float* chunk, int c0,
+                                           int k, int n, int nb) {
+  const int rows = min(kBand * nb, k - c0);
+  if constexpr (L == kCols)
+    stage_view(View{b.p + c0, 0, b.qs, 1}, 1, n, rows, chunk, 0,
+               band_pitch(kBand * nb));
+  else
+    stage_view(View{b.p + c0 * b.rs, b.cs, b.rs, 1}, NC, rows, n,
+               chunk, kBand * nb, band_pitch(n));
+}
+
+template <int NC, ChunkLayout L>
+__device__ __forceinline__ void stage_rows(ClusterPlanes b, float* chunk,
+                                           int c0, int k, int, int nb) {
+  constexpr int kS = (2 * kBand * kMaxChunkPitch / 4 + kThreads - 1)
+                     / kThreads;
+  const int per = 2 * kBand * b.pitch / 4;   // float4 in a band buffer
+  const int total = min(nb, (k - c0 + kBand - 1) / kBand) * per;
+  float4* dst = reinterpret_cast<float4*>(chunk);
+  float4 val[kS];
 #pragma unroll
-        for (int kk = 0; kk < kDepth; ++kk) {
-          float av[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) av[a] = smA[kk * kPad + tr + 16 * a];
-#pragma unroll
-          for (int b = 0; b < 4; ++b) bv[b] = smB[kk * kPad + tc + 16 * b];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-              acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-        }
-      }
-      for (int a = 0; a < 4; ++a) {
-        const int gi = m0 + tr + 16 * a;
-        if (gi >= M) continue;
-        for (int b = 0; b < 4; ++b) {
-          const int gj = n0 + tc + 16 * b;
-          if (gj >= N) continue;
-          const int64_t o = (int64_t)gi * N + gj;
-          float val = acc[a][b];
-          if (wgt != nullptr) val *= __ldg(wgt + o);
-          C[o] = accumulate ? C[o] + val : val;
-        }
-      }
+  for (int s = 0; s < kS; ++s) {
+    const int e = threadIdx.x + s * kThreads;
+    if (e < total) {
+      const int bi = e / per;
+      val[s] = reinterpret_cast<const float4*>(
+          b.row(c0 + bi * kBand))[e - bi * per];
     }
   }
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const int e = threadIdx.x + s * kThreads;
+    if (e < total) dst[e] = val[s];
+  }
+}
+
+// A_c B_c for both channels c of the block's band, on the tensor cores in
+// 3xTF32, with NT column tiles a warp: A_c is kBand x k (rows i < rows;
+// zero beyond), B_c is k x n, staged kBand nb rows at a time as L says.
+// kShareA: one A for both channels, in device memory (Ty or Ty^T), staged
+// once into abuf (kBand rows of band_pitch(k)); else one B, and A in shared
+// memory (a band buffer). store(c, i, j, value) takes each element of rows
+// i < rows, columns j < n. Every thread of the block calls it.
+//
+// Each chunk costs one round trip to B's source. Warp w owns the 8-column
+// tiles from 8 w and from 8 w + 8 kWarps (NT = 2), both channels, and holds
+// each fragment it loads for all of them. The fragments are mma.m16n8k8's:
+// lane = 4 g + t holds A's (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4),
+// B's (t, g), (t + 4, g), and the sums' (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1). lo hi, hi lo and hi hi are summed apart: three
+// independent dependency chains, and the small terms' rounding stays small.
+template <bool kShareA, ChunkLayout L, int NT, class B, class S>
+__device__ __forceinline__ void band_mm_tiles(int k, int n, int rows, View a,
+                                              B b, float* chunk, int nb,
+                                              float* abuf, S store) {
+  constexpr int kCA = kShareA ? 1 : 2, kCB = kShareA ? 2 : 1;
+  const int pitch = band_pitch(n), pitch_t = band_pitch(kBand * nb);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = warp * 8 < n;          // the warp owns a column
+  const bool ra0 = g < rows, ra1 = g + 8 < rows;
+  if (kShareA) {
+    stage_view(a, 1, rows, k, abuf, kBand, band_pitch(k));
+    a = View{abuf, 0, band_pitch(k), 1};
+  }
+  const float* pa = a.p + g * a.rs + t;
+  const int a8 = 8 * a.rs;
+  bool cb[NT];
+  int col[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    col[q] = warp * 8 + q * 8 * kWarps + g;
+    cb[q] = col[q] < n;
+  }
+  // B's (t, col) in the chunk: ob + c * oc + kk_base * ok; (t + 4, col):
+  // that + o4
+  const int ok = L == kCols ? 1 : pitch;
+  const int oc = L == kRows ? kBand * nb * pitch : kBand * pitch;
+  const int o4 = 4 * ok;
+  float big[2][NT][4] = {}, small[2][2][NT][4] = {};
+  for (int c0 = 0; c0 < k; c0 += kBand * nb) {
+    stage_rows<kCB, L>(b, chunk, c0, k, n, nb);
+    cp_async_wait();
+    __syncthreads();
+    const int n_bands = min(nb, (k - c0 + kBand - 1) / kBand);
+    for (int bi = 0; active && bi < n_bands; ++bi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k0 = c0 + bi * kBand + 8 * half;
+        if (k0 >= k) break;
+        const bool k_lo = k0 + t < k, k_hi = k0 + t + 4 < k;
+        // the chunk's row of B's element (t, .) of this k step
+        const int kb = L == kBands ? 2 * bi * kBand * pitch
+                                       + (8 * half + t) * pitch
+                                   : (bi * kBand + 8 * half + t) * ok;
+        uint32_t ah[kCA][4], al[kCA][4], bh[kCB][NT][2], bl[kCB][NT][2];
+#pragma unroll
+        for (int c = 0; c < kCA; ++c) {
+          const float* p = pa + c * a.cs + k0;
+          split_tf32(ra0 && k_lo ? p[0] : 0.0f, ah[c][0], al[c][0]);
+          split_tf32(ra1 && k_lo ? p[a8] : 0.0f, ah[c][1], al[c][1]);
+          split_tf32(ra0 && k_hi ? p[4] : 0.0f, ah[c][2], al[c][2]);
+          split_tf32(ra1 && k_hi ? p[a8 + 4] : 0.0f, ah[c][3], al[c][3]);
+        }
+#pragma unroll
+        for (int c = 0; c < kCB; ++c)
+#pragma unroll
+          for (int q = 0; q < NT; ++q) {
+            const float* p = chunk + kb + c * oc
+                             + (L == kCols ? col[q] * pitch_t : col[q]);
+            split_tf32(cb[q] && k_lo ? p[0] : 0.0f, bh[c][q][0], bl[c][q][0]);
+            split_tf32(cb[q] && k_hi ? p[o4] : 0.0f, bh[c][q][1],
+                       bl[c][q][1]);
+          }
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int q = 0; q < NT; ++q) {
+            const int ca = kShareA ? 0 : c, cbi = kShareA ? c : 0;
+            mma_tf32(small[0][c][q], al[ca], bh[cbi][q]);
+            mma_tf32(small[1][c][q], ah[ca], bl[cbi][q]);
+            mma_tf32(big[c][q], ah[ca], bh[cbi][q]);
+          }
+      }
+    }
+    __syncthreads();                         // before the next staging
+  }
+  if (!active) return;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = g + 8 * (e >> 1), j = col[q] - g + 2 * t + (e & 1);
+        if (i < rows && j < n)
+          store(c, i, j,
+                big[c][q][e] + (small[0][c][q][e] + small[1][c][q][e]));
+      }
+}
+
+// band_mm_tiles with one column tile a warp up to n = 64, two beyond (n <=
+// 128).
+template <bool kShareA, ChunkLayout L, class B, class S>
+__device__ __forceinline__ void band_mm(int k, int n, int rows, View a, B b,
+                                        float* chunk, int nb, float* abuf,
+                                        S store) {
+  if (n > 8 * kWarps)
+    band_mm_tiles<kShareA, L, 2>(k, n, rows, a, b, chunk, nb, abuf, store);
+  else
+    band_mm_tiles<kShareA, L, 1>(k, n, rows, a, b, chunk, nb, abuf, store);
+}
+
+// The shared memory band_solve works in: sa, the block's own band buffer
+// (P1, P3); sb, the one the cluster reads (P2); chunk, nb band buffers, and
+// abuf, kBand rows of band_pitch(H), for band_mm.
+struct SolveSmem { float *sa, *sb, *chunk, *abuf; int nb; };
+
+// The band buffers of a chunk: 4 up to 64 px a row, else 2 (K6) or 1 (K7,
+// whose shared memory must leave room for two blocks an SM).
+__host__ __device__ constexpr int chunk_bands(int w, bool bwd) {
+  return w <= 64 ? 4 : bwd ? 1 : 2;
+}
+
+// The floats of a SolveSmem.
+__host__ __device__ constexpr int solve_smem_floats(int h, int w, bool bwd) {
+  return (2 + chunk_bands(w, bwd)) * band_floats(w) + kBand * band_pitch(h);
+}
+
+// K x on the block's band of one item, both channels, in the order of
+// epdiff_pallas.py:_solve_mm: P1 = Ty x, P2 = (P1 Tx^T) * W, P3 = Ty^T P2,
+// P4 = P3 Tx. x (a View or ClusterPlanes) holds every row of x; store(c, i,
+// j, value) takes the band's rows of P4. Every thread of the cluster calls
+// it. A cluster barrier follows P2; one follows P3 too with kLast (no block
+// reads this block's P2 after it, so the block may exit after P4), else a
+// block barrier.
+template <bool kLast, class X, class S>
+__device__ __forceinline__ void band_solve(X x, const float* __restrict__ ty,
+                                           const float* __restrict__ tx,
+                                           const float* __restrict__ wgt,
+                                           SolveSmem sm, Band bd, int h,
+                                           int w, S store) {
+  const int pitch = band_pitch(w);
+  const View a_band{sm.sa, kBand * pitch, pitch, 1};
+  const auto to_a = [&](int c, int i, int j, float val) {
+    sm.sa[(c * kBand + i) * pitch + j] = val;
+  };
+  // x is whole in device memory (a View) or in the cluster's bands
+  constexpr ChunkLayout kXLayout = std::is_same_v<X, View> ? kRows : kBands;
+  band_mm<true, kXLayout>(                             // P1 = Ty x
+      h, w, bd.rows, View{ty + bd.row0 * h, 0, h, 1}, x, sm.chunk, sm.nb,
+      sm.abuf, to_a);
   __syncthreads();
+  band_mm<false, kCols>(w, w, bd.rows, a_band, View{tx, 0, 1, w},  // P2
+                        sm.chunk, sm.nb, sm.abuf,
+                        [&](int c, int i, int j, float val) {
+                          sm.sb[(c * kBand + i) * pitch + j] =
+                              val * __ldg(wgt + (bd.row0 + i) * w + j);
+                        });
+  cg::this_cluster().sync();          // every band of P2 is in place
+  band_mm<true, kBands>(h, w, bd.rows, View{ty + bd.row0, 0, 1, h},  // P3
+                        ClusterPlanes{sm.sb, bd.rank, pitch}, sm.chunk,
+                        sm.nb, sm.abuf, to_a);
+  if (kLast) cg::this_cluster().sync();
+  else __syncthreads();
+  band_mm<false, kRows>(w, w, bd.rows, a_band, View{tx, 0, w, 1},  // P4
+                        sm.chunk, sm.nb, sm.abuf, store);
 }
 
-// out = Ty^T [ (Ty x Tx^T) * W ] Tx on one (h, w) plane, in the order of
-// epdiff_pallas.py:_solve_mm; t1, t2 are (h, w) scratch planes (t2 may be
-// out when out is not accumulated into). With accumulate, out += K x.
-__device__ void block_solve(const float* x, const float* ty, const float* tx,
-                            const float* wgt, float* out, bool accumulate,
-                            float* t1, float* t2, int h, int w, float* smA,
-                            float* smB) {
-  block_mm(ty, h, 1, x, w, 1, nullptr, t1, false, h, w, h, smA, smB);
-  block_mm(t1, w, 1, tx, 1, w, wgt, t2, false, h, w, w, smA, smB);
-  block_mm(ty, 1, h, t2, w, 1, nullptr, t1, false, h, w, h, smA, smB);
-  block_mm(t1, w, 1, tx, w, 1, nullptr, out, accumulate, h, w, w, smA, smB);
-}
+// v's band with a row of its neighbours' above and below (kBand + 2 rows a
+// channel): v(c, i, j) is channel c at row i of the item, i in row0 - 1 ..
+// row0 + kBand.
+struct HaloBand {
+  float* p;
+  int row0, pitch;
+  __device__ __forceinline__ float* at(int c, int i, int j) const {
+    return p + (c * (kBand + 2) + i - row0 + 1) * pitch + j;
+  }
+  __device__ __forceinline__ float operator()(int c, int i, int j) const {
+    return *at(c, i, j);
+  }
+};
 
-// scratch: 3 planes an item, (v_y, v_x, t)
-__global__ void __launch_bounds__(kThreads) epdiff_step_solve_fwd_kernel(
+// K6: one item a cluster; dynamic shared memory: band_solve's
+// (solve_smem_floats), then v's HaloBand.
+__global__ void __launch_bounds__(kThreads, 2) epdiff_step_solve_fwd_kernel(
     const float* __restrict__ m, const float* __restrict__ u,
     const float* __restrict__ ty, const float* __restrict__ tx,
     const float* __restrict__ wgt, float* __restrict__ m_out,
-    float* __restrict__ u_out, float* scratch, int h, int w, float dt,
-    float r) {
-  __shared__ float smA[kDepth * kPad], smB[kDepth * kPad];
+    float* __restrict__ u_out, int h, int w, float dt, float r) {
+  extern __shared__ float4 smem4[];
+  const Band bd = band_of(h);
+  const int pitch = band_pitch(w);
+  float* sa = reinterpret_cast<float*>(smem4);
+  const SolveSmem sm{sa, sa + band_floats(w), sa + 2 * band_floats(w),
+                     sa + (2 + chunk_bands(w, false)) * band_floats(w),
+                     chunk_bands(w, false)};
+  float* sv = sa + solve_smem_floats(h, w, false);
   const int64_t hw = (int64_t)h * w;
-  const int64_t base = (int64_t)blockIdx.x * 2 * hw;
-  float* v = scratch + (int64_t)blockIdx.x * 3 * hw;
-  float* t = v + 2 * hw;
-  for (int c = 0; c < 2; ++c)         // phase A: v = K m
-    block_solve(m + base + c * hw, ty, tx, wgt, v + c * hw, false, t,
-                v + c * hw, h, w, smA, smB);
-  for (int64_t p = threadIdx.x; p < hw; p += kThreads) {   // phase B
-    const int i = (int)(p / w);
-    const int j = (int)(p - (int64_t)i * w);
-    step_fwd_pixel<false>(v, m + base, u + base, m_out + base, u_out + base,
-                          p, i, j, h, w, dt, r);
+  const int64_t base = (int64_t)bd.n * 2 * hw;
+  // u's rows that phase B's taps reach, into L2 while the products run
+  prefetch_rows(u + base, hw, w, h, bd.row0 - (int)r - 1,
+                bd.row0 + bd.rows + (int)r + 1);
+  const HaloBand v{sv, bd.row0, pitch};
+  band_solve<false>(View{m + base, (int)hw, w, 1}, ty, tx, wgt, sm, bd, h,
+                    w, [&](int c, int i, int j, float val) {  // phase A
+                      *v.at(c, bd.row0 + i, j) = val;
+                    });
+  cg::this_cluster().sync();          // every band of v is in place
+  // the halo rows from the neighbours' shared memory
+  const cg::cluster_group cluster = cg::this_cluster();
+  for (int e = threadIdx.x; e < 4 * w; e += kThreads) {
+    const int c = e / (2 * w), below = (e / w) & 1, j = e % w;
+    const int i = below ? bd.row0 + kBand : bd.row0 - 1;
+    if (i < 0 || i >= h) continue;
+    const HaloBand nb{cluster.map_shared_rank(sv, bd.rank + (below ? 1 : -1)),
+                      bd.row0 + (below ? kBand : -kBand), pitch};
+    *v.at(c, i, j) = nb(c, i, j);
+  }
+  cluster.sync();                     // no block reads another's v now
+  const Planes mp{m + base, hw, w};
+  // phase B: the band's pixels, a fixed count of passes, unrolled so that
+  // the loads of several pixels are in flight at once
+#pragma unroll
+  for (int s = 0; s < kBand * kMaxSide / kThreads; ++s) {
+    const int e = threadIdx.x + s * kThreads;
+    if (e < bd.rows * w) {
+      const int li = e / w, j = e - li * w, i = bd.row0 + li;
+      step_fwd_pixel(v, mp, u + base, m_out + base, u_out + base,
+                     (int64_t)i * w + j, i, j, h, w, dt, r);
+    }
   }
 }
 
-// scratch: 5 planes an item, (v_y, v_x, t, g_v y, g_v x)
-__global__ void __launch_bounds__(kThreads) epdiff_step_solve_bwd_kernel(
+// The bytes of K7's first region of shared memory: the staging of K3's tile
+// (bwd_tile<RC>'s, or with RC = 0 bwd_tile_chunked's) in phase B,
+// band_solve's in phases A and C.
+template <int RC>
+__host__ __device__ constexpr size_t solve_bwd_stage_bytes(int h, int w) {
+  size_t stage = 0;
+  if constexpr (RC > 0) stage = bwd_smem_bytes<RC>();
+  else stage = chunk_smem_bytes();
+  const size_t solve = (size_t)solve_smem_floats(h, w, true) * sizeof(float);
+  return stage > solve ? stage : solve;
+}
+
+// K7: one item a cluster; RC is K3's compiled tile radius (1, 2), or 0 for
+// its runtime-R tile at radius R. Dynamic shared memory: the first region
+// (solve_bwd_stage_bytes), then 3 band buffers (v; g_v; K3's g_m). Phase B
+// stages its tiles where the products work: between phase A's last read of
+// P2 by the cluster and phase C's first write, two cluster barriers.
+template <int RC>
+__global__ void __launch_bounds__(kThreads, 2) epdiff_step_solve_bwd_kernel(
     const float* __restrict__ m, const float* __restrict__ u,
     const float* __restrict__ ty, const float* __restrict__ tx,
     const float* __restrict__ wgt, const float* __restrict__ gmo,
-    const float* __restrict__ guo, float* gm, float* __restrict__ gu,
-    float* scratch, int h, int w, float dt, int R) {
-  __shared__ float smA[kDepth * kPad], smB[kDepth * kPad];
+    const float* __restrict__ guo, float* __restrict__ gm,
+    float* __restrict__ gu, int h, int w, float dt, int R) {
+  extern __shared__ float4 smem4[];
+  const Band bd = band_of(h);
+  const int pitch = band_pitch(w);
+  float4* stage = smem4;
+  float* sa = reinterpret_cast<float*>(smem4);
+  const SolveSmem sm{sa, sa + band_floats(w), sa + 2 * band_floats(w),
+                     sa + (2 + chunk_bands(w, true)) * band_floats(w),
+                     chunk_bands(w, true)};
+  float* sv = reinterpret_cast<float*>(
+      smem4 + solve_bwd_stage_bytes<RC>(h, w) / sizeof(float4));
+  float* sgv = sv + band_floats(w);
+  float* sgm = sgv + band_floats(w);
   const int64_t hw = (int64_t)h * w;
-  const int64_t base = (int64_t)blockIdx.x * 2 * hw;
-  float* v = scratch + (int64_t)blockIdx.x * 5 * hw;
-  float* t = v + 2 * hw;
-  float* gv = v + 3 * hw;
-  for (int c = 0; c < 2; ++c)         // phase A: v = K m, recomputed
-    block_solve(m + base + c * hw, ty, tx, wgt, v + c * hw, false, t,
-                v + c * hw, h, w, smA, smB);
-  for (int64_t p = threadIdx.x; p < hw; p += kThreads) {   // phase B
-    const int i = (int)(p / w);
-    const int j = (int)(p - (int64_t)i * w);
-    step_bwd_pixel(v, m + base, u + base, gmo + base, guo + base, gv,
-                          gm + base, gu + base, p, i, j, h, w, dt, R);
+  const int64_t base = (int64_t)bd.n * 2 * hw;
+  // the rows of u, gm', gu' that phase B's tiles stage, into L2 meanwhile
+  const int lo = bd.row0 - R - 1, hi = bd.row0 + kBand + R + 1;
+  prefetch_rows(u + base, hw, w, h, lo, hi);
+  prefetch_rows(gmo + base, hw, w, h, lo, hi);
+  prefetch_rows(guo + base, hw, w, h, lo, hi);
+  band_solve<false>(View{m + base, (int)hw, w, 1}, ty, tx, wgt, sm, bd, h, w,
+                    [&](int c, int i, int j, float val) {   // phase A: v
+                      sv[(c * kBand + i) * pitch + j] = val;
+                    });
+  cg::this_cluster().sync();          // every band of v is in place
+
+  // phase B: K3 on the band's tiles; g_v and g_m into shared memory
+  const auto out = [&](int64_t p, int i, int j, float gvy, float gvx,
+                       float gmy, float gmx, float gu0, float gu1) {
+    const int o = (i - bd.row0) * pitch + j, o1 = o + kBand * pitch;
+    sgv[o] = gvy;
+    sgv[o1] = gvx;
+    sgm[o] = gmy;
+    sgm[o1] = gmx;
+    gu[base + p] = gu0;
+    gu[base + hw + p] = gu1;
+  };
+  const ClusterPlanes v{sv, bd.rank, pitch};
+  for (int tx0 = 0; tx0 < w; tx0 += kBwdTileW) {
+    if constexpr (RC > 0)
+      bwd_tile<RC>(stage, v, m + base, u + base, gmo + base, guo + base, out,
+                   tx0, bd.row0, h, w, dt);
+    else
+      bwd_tile_chunked(ChunkSmem(stage), v, m + base, u + base, gmo + base,
+                       guo + base, out, tx0, bd.row0, h, w, dt, R);
   }
-  // phase C: g_m += K g_v; v is dead, so its plane serves as scratch
-  for (int c = 0; c < 2; ++c)
-    block_solve(gv + c * hw, ty, tx, wgt, gm + base + c * hw, true, t, v, h,
-                w, smA, smB);
+  cg::this_cluster().sync();          // every band of g_v is in place
+
+  // phase C: g_m = K3's g_m + K g_v
+  band_solve<true>(ClusterPlanes{sgv, bd.rank, pitch}, ty, tx, wgt, sm, bd,
+                   h, w, [&](int c, int i, int j, float val) {
+                     gm[base + c * hw + (int64_t)(bd.row0 + i) * w + j] =
+                         sgm[(c * kBand + i) * pitch + j] + val;
+                   });
+}
+
+// Launches kernel on n items, a cluster of cl blocks of kThreads threads an
+// item, with smem bytes of dynamic shared memory; the attributes first.
+template <class... P, class... A>
+cudaError_t launch_clusters(void (*kernel)(P...), int n, int cl, size_t smem,
+                            cudaStream_t stream, A... args) {
+  if ((int64_t)n * cl > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n * cl));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -981,25 +1352,31 @@ extern "C" int epdiff_step_bwd(const float* v, const float* m, const float* u,
   return (int)cudaGetLastError();
 }
 
-// m, u, m_out, u_out: (N, 2, H, W); ty (H, H), tx (W, W), wgt (H, W); the
-// scratch holds N * 3 * H * W floats. All f32, contiguous, on the current
-// device; H, W >= 2. Returns cudaGetLastError().
+// m, u, m_out, u_out: (N, 2, H, W); ty (H, H), tx (W, W), wgt (H, W). All
+// f32, contiguous, on the current device; 2 <= H, W <= 128, radius >= 1
+// (cudaErrorInvalidValue otherwise). scratch is not used. Returns
+// cudaGetLastError().
 extern "C" int epdiff_step_solve_fwd(const float* m, const float* u,
                                      const float* ty, const float* tx,
                                      const float* wgt, float* m_out,
                                      float* u_out, float* scratch, int n,
                                      int h, int w, float dt, int radius,
                                      cudaStream_t stream) {
+  (void)scratch;
   if (n == 0) return (int)cudaSuccess;
-  epdiff_step_solve_fwd_kernel<<<n, kThreads, 0, stream>>>(
-      m, u, ty, tx, wgt, m_out, u_out, scratch, h, w, dt,
-      (float)(radius - 1));
-  return (int)cudaGetLastError();
+  if (h < 2 || w < 2 || h > kMaxSide || w > kMaxSide || radius < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_clusters(
+      epdiff_step_solve_fwd_kernel, n, solve_cluster(h),
+      (size_t)(solve_smem_floats(h, w, false) + 2 * (kBand + 2) * band_pitch(w))
+          * sizeof(float),
+      stream, m, u, ty, tx, wgt,
+      m_out, u_out, h, w, dt, (float)(radius - 1));
 }
 
 // m, u, gm_out, gu_out (the cotangents of m', u') -> gm, gu: (N, 2, H, W);
-// operands as above; the scratch holds N * 5 * H * W floats. All f32,
-// contiguous, on the current device; H, W >= 4. Returns cudaGetLastError().
+// operands as above; 4 <= H, W <= 128, radius >= 1 (cudaErrorInvalidValue
+// otherwise). scratch is not used. Returns cudaGetLastError().
 extern "C" int epdiff_step_solve_bwd(const float* m, const float* u,
                                      const float* ty, const float* tx,
                                      const float* wgt, const float* gm_out,
@@ -1007,8 +1384,25 @@ extern "C" int epdiff_step_solve_bwd(const float* m, const float* u,
                                      float* gu, float* scratch, int n, int h,
                                      int w, float dt, int radius,
                                      cudaStream_t stream) {
+  (void)scratch;
   if (n == 0) return (int)cudaSuccess;
-  epdiff_step_solve_bwd_kernel<<<n, kThreads, 0, stream>>>(
-      m, u, ty, tx, wgt, gm_out, gu_out, gm, gu, scratch, h, w, dt, radius);
-  return (int)cudaGetLastError();
+  if (h < 4 || w < 4 || h > kMaxSide || w > kMaxSide || radius < 1)
+    return (int)cudaErrorInvalidValue;
+  const int cl = solve_cluster(h);
+  const size_t bands = (size_t)3 * band_floats(w) * sizeof(float);
+  if (radius <= 2) {
+    const auto kernel = radius == 1 ? epdiff_step_solve_bwd_kernel<1>
+                                    : epdiff_step_solve_bwd_kernel<2>;
+    const size_t stage = radius == 1 ? solve_bwd_stage_bytes<1>(h, w)
+                                     : solve_bwd_stage_bytes<2>(h, w);
+    return (int)launch_clusters(kernel, n, cl, stage + bands, stream, m, u,
+                                ty, tx, wgt, gm_out, gu_out, gm, gu, h, w, dt,
+                                radius);
+  }
+  // beyond max(H, W) the clamp at radius - 1 bites nowhere the clip does not
+  const int hw_max = h > w ? h : w;
+  return (int)launch_clusters(
+      epdiff_step_solve_bwd_kernel<0>, n, cl,
+      solve_bwd_stage_bytes<0>(h, w) + bands, stream, m, u, ty, tx, wgt,
+      gm_out, gu_out, gm, gu, h, w, dt, radius < hw_max ? radius : hw_max);
 }

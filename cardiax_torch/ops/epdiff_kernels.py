@@ -262,6 +262,19 @@ def _epdiff_step_solve_bwd_plain(m, u, ty, tx, wgt, gm, gu, dt: float,
     return g_m + _solve_plain(g_v, ty, tx, wgt), g_u
 
 
+# K6/K7 keep an item's rows in the shared memory of a cluster of at most 8
+# blocks of 16 rows: ``epdiff_pallas._MAX_SOLVE_SIDE``, the largest plane
+# ``expmap_shooting`` gives the fused solve (``fluid_metric._MM_MAX_SIDE``)
+MAX_SOLVE_SIDE = 128
+
+
+def _check_solve_side(what: str, m: torch.Tensor) -> None:
+    if max(m.shape[-2:]) > MAX_SOLVE_SIDE:
+        raise ValueError(f"{what}: the kernel takes planes of at most "
+                         f"{MAX_SOLVE_SIDE} px a side, got "
+                         f"{tuple(m.shape[-2:])}")
+
+
 def _solve_fn(name: str, n_ptrs: int):
     fn = getattr(load_library("epdiff_step"), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 \
@@ -273,16 +286,15 @@ def _solve_fn(name: str, n_ptrs: int):
 def _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt: float, radius: int):
     global solve_launches
     require_cuda("epdiff_step_solve_fwd", m=m, u=u, ty=ty, tx=tx, wgt=wgt)
+    _check_solve_side("epdiff_step_solve_fwd", m)
     fn = _solve_fn("epdiff_step_solve_fwd", 8)
     n, _, h, w = m.shape
     m_out = torch.empty_like(m)
     u_out = torch.empty_like(u)
-    # per-item workspace (v and one plane of intermediates), not an output
-    scratch = torch.empty((n, 3, h, w), dtype=torch.float32, device=m.device)
-    with torch.cuda.device(m.device):
+    with torch.cuda.device(m.device):      # no scratch: v stays on chip
         err = fn(m.data_ptr(), u.data_ptr(), ty.data_ptr(), tx.data_ptr(),
-                 wgt.data_ptr(), m_out.data_ptr(), u_out.data_ptr(),
-                 scratch.data_ptr(), n, h, w, float(dt), int(radius),
+                 wgt.data_ptr(), m_out.data_ptr(), u_out.data_ptr(), None,
+                 n, h, w, float(dt), int(radius),
                  torch.cuda.current_stream().cuda_stream)
     check(err, "epdiff_step_solve_fwd")
     solve_launches += 1
@@ -294,18 +306,16 @@ def _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt: float,
     global solve_bwd_launches
     require_cuda("epdiff_step_solve_bwd", m=m, u=u, ty=ty, tx=tx, wgt=wgt,
                  gm=gm, gu=gu)
+    _check_solve_side("epdiff_step_solve_bwd", m)
     fn = _solve_fn("epdiff_step_solve_bwd", 10)
     n, _, h, w = m.shape
     g_m = torch.empty_like(m)
     g_u = torch.empty_like(u)
-    # per-item workspace: v, one plane of intermediates, g_v
-    scratch = torch.empty((n, 5, h, w), dtype=torch.float32, device=m.device)
-    with torch.cuda.device(m.device):
+    with torch.cuda.device(m.device):      # no scratch: v, g_v stay on chip
         err = fn(m.data_ptr(), u.data_ptr(), ty.data_ptr(), tx.data_ptr(),
                  wgt.data_ptr(), gm.data_ptr(), gu.data_ptr(),
-                 g_m.data_ptr(), g_u.data_ptr(), scratch.data_ptr(), n, h, w,
-                 float(dt), int(radius),
-                 torch.cuda.current_stream().cuda_stream)
+                 g_m.data_ptr(), g_u.data_ptr(), None, n, h, w, float(dt),
+                 int(radius), torch.cuda.current_stream().cuda_stream)
     check(err, "epdiff_step_solve_bwd")
     solve_bwd_launches += 1
     return g_m, g_u

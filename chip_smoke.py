@@ -19,12 +19,16 @@ prints no result without CUDA. Phases, one line each:
    at the in-scan grid of 768x512 frames, the flagship's final warp and
    768x512 frames, and at its hard cases: a convergent field, the clip
    holding whole rows, integer displacements, frames that are no multiple
-   of its tile; K1, K3 and K5 with two launches bit-identical; K6/K7 also
-   at 128^2 items, the largest the fused solve takes); its time (CUDA
+   of its tile; K1, K3 and K5 with two launches bit-identical; K6/K7 at
+   64^2 and 128^2 items, the largest the fused solve takes, at a ragged
+   (7, 2, 52, 36), at N = 1, K7 also at R = 1, 3 and the 4x4 minimum, with
+   two launches bit-identical); its time (CUDA
    events around 20 calls of the wrapper, and its kernels' own device time
    from the profiler), its byte/operation bound, the plain version's time
    and, where one exists, one PyTorch call computing the same function,
-   timed both ways (for K6/K7 the unfused pair of solve and K2/K3 instead);
+   timed both ways (for K6/K7 the unfused pair of solve and K2/K3 instead,
+   and beside their bound on the tensor cores in 3xTF32 the earlier bound
+   on the f32 CUDA cores);
 3. slice: ``TrainerEngine.test`` over 2 batches (the last one padded) at the
    full width of ``configs/joint.json`` (batch 10, 128^2, T=20, Ts=40, 126
    sectors, 5 Euler steps) with random weights from a seeded generator;
@@ -100,6 +104,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, f32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 
 
 def require(cond: bool, msg: str) -> None:
@@ -147,20 +152,22 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
     return None
 
 
-def times(fn, names, plain, lib=None, plain_iters: int = 20):
+def times(fn, names, plain, lib=None, plain_iters: int = 20, turn_fn=None):
     """The timing keys of a kernel's entry: ``ms`` (CUDA events around 20
     calls of its wrapper), ``kernel_ms`` (the device time of its kernels,
     ``names``, alone), ``plain_ms``, and for the one PyTorch call computing
     the same function ``library_ms`` and ``library_kernel_ms`` (every
     device event of the call), None without one. With ``--baseline``, the
     kernel alone is timed in turns baseline, this tree, this tree, baseline
-    (``baseline_kernel_ms``, ``kernel_ms_turns``)."""
+    (``baseline_kernel_ms``, ``kernel_ms_turns``), each turn through
+    ``turn_fn`` where given (a launch both trees' kernels take), else
+    ``fn``."""
     out = {"ms": time_ms(fn)}
     if BASELINE:
         turns = []
         for base in (True, False, False, True):
             with baseline_kernels(base):
-                turns.append(device_ms(fn, names))
+                turns.append(device_ms(turn_fn or fn, names))
         out["kernel_ms"] = mean_or_none(turns[1:3])
         out["baseline_kernel_ms"] = mean_or_none(turns[0::3])
         out["kernel_ms_turns"] = turns
@@ -255,11 +262,13 @@ def time_text(t, bound_ms, bound_by, lib_name=None) -> str:
             f"{fmt_ms(t['library_kernel_ms'])})")
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
-    operations over the f32 peak."""
+def bound(n_bytes: float, n_ops: float, mm_flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and the
+    operations' time: f32 operations over the f32 peak, plus matrix-product
+    flops run in 3xTF32 (three TF32 products each) over the TF32 tensor
+    cores' peak."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = n_ops / F32_FLOPS_PER_S * 1e3
+    o_ms = (n_ops / F32_FLOPS_PER_S + 3 * mm_flops / TF32_FLOPS_PER_S) * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -648,7 +657,8 @@ SOLVE_METRIC = (0.5, 1.0, 2)
 
 def solve_fields(seed, n, h, w, dt, r, dev):
     """(m, u, gm', gu', v) for K6/K7 with v = K m: the in-scan clamp biting
-    and, on the border rows, the clip. The mask and tap tests of K7 are
+    and, on the border rows, the clip (at R = 1 the clamp at 0 leaves every
+    sample on its own pixel). The mask and tap tests of K7 are
     discontinuous at integer values of b = -dt v, and the kernel's v
     differs from the plain version's (cuBLAS, another summation order) by
     ~1e-6, so b is drawn at least 0.2 px from every integer (a smooth field
@@ -675,7 +685,7 @@ def solve_fields(seed, n, h, w, dt, r, dev):
     ii = torch.arange(h, device=dev).view(1, h, 1).float()
     cy = ii + bk[:, 0].clamp(-(r - 1), r - 1)
     clipped = ((cy < 0) | (cy > h - 1)).float().mean().item()
-    require(clamped > 0 and clipped > 0,
+    require(clamped > 0 and (clipped > 0 or r == 1),
             f"K6/K7 fields at {(n, 2, h, w)}: clamp/clip do not bite")
     return (m, u, gm, gu, v), ops, (clamped, clipped, margin)
 
@@ -693,54 +703,104 @@ def gate(what, outs, refs):
     return err, tol
 
 
-def check_k6(dev, n=190, h=64, w=64):
+def solve_turn(bwd, m, u, ops, gm, gu, dt, r, scratch):
+    """One K6 launch (K7 with ``bwd``) through its C entry with a workspace
+    of 3 (K7: 5) planes an item: the earlier design's kernels (PR 4-7) need
+    it and this tree's ignore it, so ``--baseline`` times both by one call."""
+    from cardiax_torch.ops import epdiff_kernels as ek
+    name = "epdiff_step_solve_bwd" if bwd else "epdiff_step_solve_fwd"
+    fn = ek._solve_fn(name, 10 if bwd else 8)
+    n, _, h, w = m.shape
+    outs = (torch.empty_like(m), torch.empty_like(u))
+    ins = (m, u, *ops) + ((gm, gu) if bwd else ())
+    err = fn(*(t.data_ptr() for t in ins + outs), scratch.data_ptr(), n, h,
+             w, float(dt), int(r), torch.cuda.current_stream().cuda_stream)
+    ek.check(err, name)
+    return outs
+
+
+def solve_bounds(n, h, w, solves, stencil_flops, planes):
+    """K6/K7's bounds: (bound_ms, bound_by) with the solve's products on
+    the tensor cores in 3xTF32, the rest in f32, and the bound of PR 4-7
+    with every flop on the f32 CUDA cores. A solve is four products, 4 H W
+    (H + W) flops a plane; ``planes`` f32 planes are read or written."""
+    pix = n * h * w
+    mm = solves * 4 * pix * (h + w)
+    return (bound(planes * pix * 4, stencil_flops * pix, mm),
+            bound(planes * pix * 4, stencil_flops * pix + mm))
+
+
+def check_k6(dev, n=190, h=64, w=64, timed=True):
     """K6 at the flagship's shooting grid, (190, 2, 64, 64), by default;
-    dt 0.2, R=2, the flagship's metric on that grid."""
+    dt 0.2, R=2, the flagship's metric on that grid; a second launch
+    bit-identical to the first; its times unless not ``timed``."""
     from cardiax_torch.ops import epdiff_kernels as ek
     from cardiax_torch.ops.fluid_metric import sharp
     dt, r = 0.2, 2
     (m, u, _, _, _), ops, (clamped, clipped, margin) = solve_fields(
         60, n, h, w, dt, r, dev)
+    shape = f"({n},2,{h},{w}) dt=0.2 R={r}"
+    launch = lambda: ek._epdiff_step_solve_cuda(  # noqa: E731
+        m, u, *ops, dt, r)
     with torch.inference_mode():
-        outs = ek._epdiff_step_solve_cuda(m, u, *ops, dt, r)
+        outs, again = launch(), launch()
         refs = ek._epdiff_step_solve_plain(m, u, *ops, dt, r)
         torch.cuda.synchronize()
-        err, tol = gate("K6", outs, refs)
-        t = times(lambda: ek._epdiff_step_solve_cuda(m, u, *ops, dt, r),
-                  ["epdiff_step_solve_fwd_kernel"],
-                  lambda: ek._epdiff_step_solve_plain(m, u, *ops, dt, r))
+        require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+                f"K6 at {shape}: two launches differ")
+        err, tol = gate(f"K6 at {shape}", outs, refs)
+        head = (f"K6 epdiff_step_solve_fwd {shape} [B11]: max|kernel-plain| "
+                f"{err:.3e} (tol {tol:.1e}), repeat bit-identical, clamped "
+                f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px "
+                f"from an integer")
+        if not timed:
+            print(head)
+            return None
+        scratch = torch.empty((n, 3, h, w), device=dev) if BASELINE else None
+        t = times(launch, ["epdiff_step_solve_fwd_kernel"],
+                  lambda: ek._epdiff_step_solve_plain(m, u, *ops, dt, r),
+                  turn_fn=lambda: solve_turn(False, m, u, ops, None, None,
+                                             dt, r, scratch))
         pair = lambda: ek._epdiff_step_cuda(  # noqa: E731
             sharp(m, *SOLVE_METRIC), m, u, dt, r)
         pair_ms, pair_kernel_ms = time_ms(pair), device_ms(pair)
-    pix = n * h * w
-    bound_ms, bound_by = bound(8 * pix * 4,
-                               2 * 4 * pix * (h + w) + 90 * pix)
-    print(f"K6 epdiff_step_solve_fwd ({n},2,{h},{w}) dt=0.2 R=2 [B11]: "
-          f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), clamped "
-          f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px from "
-          f"an integer, {time_text(t, bound_ms, bound_by)}; unfused pair "
-          f"sharp + K2 {pair_ms:.4f} ms (kernels alone "
-          f"{fmt_ms(pair_kernel_ms)})")
+    (bound_ms, bound_by), (core_ms, core_by) = solve_bounds(n, h, w, 2, 90, 8)
+    print(f"{head}, {time_text(t, bound_ms, bound_by)}; bound on the f32 "
+          f"CUDA cores {core_ms:.4f} ms ({core_by}); unfused pair sharp + K2 "
+          f"{pair_ms:.4f} ms (kernels alone {fmt_ms(pair_kernel_ms)})")
     return {"name": "epdiff_step_solve_fwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:298",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
-            **t, "unfused_pair_ms": pair_ms,
+            "bound_cuda_core_ms": core_ms, **t, "unfused_pair_ms": pair_ms,
             "unfused_pair_kernel_ms": pair_kernel_ms}
 
 
-def check_k7(dev, n=190, h=64, w=64):
-    """K7 at the flagship's shooting grid, (190, 2, 64, 64), by default;
-    dt 0.2, R=2."""
+def check_k7(dev, n=190, h=64, w=64, r=2, timed=True):
+    """K7 at the flagship's shooting grid, (190, 2, 64, 64), dt 0.2, R=2,
+    by default; a second launch bit-identical to the first; its times
+    unless not ``timed``."""
     from cardiax_torch.ops import epdiff_kernels as ek
     from cardiax_torch.ops.fluid_metric import sharp
-    dt, r = 0.2, 2
+    dt = 0.2
     (m, u, gm, gu, v), ops, (clamped, clipped, margin) = solve_fields(
-        70, n, h, w, dt, r, dev)
-    outs = ek._epdiff_step_solve_bwd_cuda(m, u, *ops, gm, gu, dt, r)
+        68 + r, n, h, w, dt, r, dev)
+    shape = f"({n},2,{h},{w}) dt=0.2 R={r}"
+    launch = lambda: ek._epdiff_step_solve_bwd_cuda(  # noqa: E731
+        m, u, *ops, gm, gu, dt, r)
+    outs, again = launch(), launch()
     refs = ek._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu, dt, r)
     torch.cuda.synchronize()
-    err, tol = gate("K7", outs, refs)
+    require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+            f"K7 at {shape}: two launches differ")
+    err, tol = gate(f"K7 at {shape}", outs, refs)
+    head = (f"K7 epdiff_step_solve_bwd {shape} [B12]: max|kernel-plain| "
+            f"{err:.3e} (tol {tol:.1e}), repeat bit-identical, clamped "
+            f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px "
+            f"from an integer")
+    if not timed:
+        print(head)
+        return None
 
     def pair():
         """the separate solve's backward: K3 on the saved v, then g_m +=
@@ -748,27 +808,41 @@ def check_k7(dev, n=190, h=64, w=64):
         g_v, g_m, g_u = ek._epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, r)
         return g_m + sharp(g_v, *SOLVE_METRIC), g_u
 
-    t = times(lambda: ek._epdiff_step_solve_bwd_cuda(m, u, *ops, gm, gu,
-                                                     dt, r),
-              ["epdiff_step_solve_bwd_kernel"],
+    scratch = torch.empty((n, 5, h, w), device=dev) if BASELINE else None
+    t = times(launch, ["epdiff_step_solve_bwd_kernel"],
               lambda: ek._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu,
-                                                      dt, r))
+                                                      dt, r),
+              turn_fn=lambda: solve_turn(True, m, u, ops, gm, gu, dt, r,
+                                         scratch))
     pair_ms, pair_kernel_ms = time_ms(pair), device_ms(pair)
-    pix = n * h * w
-    bound_ms, bound_by = bound(12 * pix * 4,
-                               4 * 4 * pix * (h + w) + 160 * pix)
-    print(f"K7 epdiff_step_solve_bwd ({n},2,{h},{w}) dt=0.2 R=2 [B12]: "
-          f"max|kernel-plain| {err:.3e} (tol {tol:.1e}), clamped "
-          f"{clamped:.3%}, clipped {clipped:.3%}, b >= {margin:.2f} px from "
-          f"an integer, {time_text(t, bound_ms, bound_by)}; unfused pair "
-          f"K3 + sharp(g_v) + add {pair_ms:.4f} ms (kernels alone "
+    (bound_ms, bound_by), (core_ms, core_by) = solve_bounds(n, h, w, 4, 160,
+                                                            12)
+    print(f"{head}, {time_text(t, bound_ms, bound_by)}; bound on the f32 "
+          f"CUDA cores {core_ms:.4f} ms ({core_by}); unfused pair K3 + "
+          f"sharp(g_v) + add {pair_ms:.4f} ms (kernels alone "
           f"{fmt_ms(pair_kernel_ms)})")
     return {"name": "epdiff_step_solve_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/epdiff_step.cu",
             "replaces": "cardiax/ops/epdiff_pallas.py:336",
             "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
-            **t, "unfused_pair_ms": pair_ms,
+            "bound_cuda_core_ms": core_ms, **t, "unfused_pair_ms": pair_ms,
             "unfused_pair_kernel_ms": pair_kernel_ms}
+
+
+def check_solve_all(dev):
+    """K6 and K7 at the flagship's grid (the entries) and at 128^2 items,
+    timed; at a ragged shape (52 rows: a cluster of 4 bands, the last of 4
+    rows; widths no multiple of 8) and at N = 1; K7 also at R = 1, at a
+    runtime radius (3) and at the 4x4 minimum."""
+    entries = [check_k6(dev), check_k7(dev)]
+    check_k6(dev, 190, 128, 128)      # the largest item the fused solve takes
+    check_k7(dev, 190, 128, 128)
+    for n, h, w in ((7, 52, 36), (1, 64, 64)):
+        check_k6(dev, n, h, w, timed=False)
+        check_k7(dev, n, h, w, timed=False)
+    for n, h, w, r in ((3, 24, 20, 1), (3, 24, 20, 3), (2, 4, 4, 2)):
+        check_k7(dev, n, h, w, r, timed=False)
+    return entries
 
 
 def random_nets(cfg, n_pairs, seed: int):
@@ -1745,9 +1819,7 @@ def main(argv=None) -> int:
         check_k4(dev, *shape, rows=f"{row} ddy,ddx")
     check_k1_ragged(dev)
     kernels.append(check_k5_all(dev))
-    kernels += [check_k6(dev), check_k7(dev)]
-    check_k6(dev, 190, 128, 128)      # the largest item the fused solve takes
-    check_k7(dev, 190, 128, 128)
+    kernels += check_solve_all(dev)
     paths = {"eval": run_slice(args.profile)}
     with tempfile.TemporaryDirectory() as tmp:
         paths["train"], cfg_train, _ = run_train(Path(tmp))
@@ -1781,7 +1853,7 @@ def main(argv=None) -> int:
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_kernel_ms", "rows", "launches_by_path",
             "unfused_pair_ms", "unfused_pair_kernel_ms",
-            "baseline_kernel_ms")
+            "bound_cuda_core_ms", "baseline_kernel_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Guards of the port that hold on any machine.
 
-* ``cardiax_torch`` and ``chip_smoke.py`` import nothing of JAX, of the
+* ``cardiax_torch``, ``chip_smoke.py`` and ``tools/k6k7_phases.py``
+  import nothing of JAX, of the
   JAX package (``cardiax_torch`` itself is allowed) or the ``msgpack``
   package, which the card's machine lacks (``io/msgpack.py`` decodes
   flax's files itself);
@@ -9,10 +10,13 @@
 * each kernel wrapper refuses to launch without a CUDA tensor; gradients
   flow through the wrappers on the CPU, into a warped field too (the plain
   version of K5); the EPDiff backward refuses planes under 4 px; a missing
-  ``nvcc`` makes the build raise.
+  ``nvcc`` makes the build raise; K6/K7 refuse planes over 128 px a side;
+* ``tools/k6k7_phases.py`` finds every text it inserts probes at in the
+  kernel source.
 """
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import pytest
@@ -39,7 +43,7 @@ def _imported_roots(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "cardiax_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "tools" / "k6k7_phases.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imported_roots(f) if mod in FORBIDDEN]
@@ -87,6 +91,39 @@ def test_kernel_launch_paths_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="not a CUDA tensor"):
         warp_kernels.bilinear_warp_banded_multi(
             meta, torch.zeros(2, 2, 8, 8, device="meta"), 12)
+
+
+def test_solve_kernels_refuse_cpu_tensors_and_planes_over_128():
+    """K6/K7's launch paths refuse CPU tensors; an item over 128 px a side
+    (more rows than a cluster of 8 blocks of 16 holds) is refused before
+    any launch."""
+    m = torch.zeros(2, 2, 8, 8)
+    ops = epdiff_kernels._solve_operands(8, 8, 0.5, 1.0, 2, "cpu")
+    with pytest.raises(RuntimeError, match="not a CUDA tensor"):
+        epdiff_kernels._epdiff_step_solve_cuda(m, m, *ops, 0.2, 2)
+    with pytest.raises(RuntimeError, match="not a CUDA tensor"):
+        epdiff_kernels._epdiff_step_solve_bwd_cuda(m, m, *ops, m, m, 0.2, 2)
+    for shape in ((1, 2, 130, 8), (1, 2, 8, 129)):
+        with pytest.raises(ValueError, match="at most 128"):
+            epdiff_kernels._check_solve_side("epdiff_step_solve_fwd",
+                                             torch.zeros(shape))
+    epdiff_kernels._check_solve_side("epdiff_step_solve_fwd",
+                                     torch.zeros(1, 2, 128, 128))
+
+
+def test_phase_probe_finds_its_anchors_in_the_kernel_source():
+    """The phase probe of K6/K7 inserts its probes by matching the kernel
+    source's text; each anchor is there exactly once."""
+    spec = importlib.util.spec_from_file_location(
+        "k6k7_phases", ROOT / "tools" / "k6k7_phases.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = (ROOT / "cardiax_torch" / "csrc" / "epdiff_step.cu").read_text()
+    out = probe.probed_source(src)
+    assert out.count("PROBE(") == 11 and out.count("PROBE_START();") == 2
+    assert out.count("PROBE_END();") == 2 and "probe_read" in out
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        probe.probed_source(src.replace("cp_async_wait();\n", ""))
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad():

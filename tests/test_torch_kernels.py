@@ -294,23 +294,47 @@ def _solve_inputs(gen, shape, cuda, metric=(0.5, 1.0, 2)):
         epdiff_kernels._solve_operands(h, w, *metric, cuda)
 
 
-def test_epdiff_step_solve_kernels_match_plain(cuda):
+@pytest.mark.parametrize(
+    "shape,radius",
+    [((6, 2, 40, 36), 2), ((7, 2, 52, 36), 2), ((1, 2, 64, 64), 2),
+     ((2, 2, 128, 128), 2), ((2, 2, 4, 4), 2), ((3, 2, 24, 20), 1),
+     ((3, 2, 24, 20), 3)])
+def test_epdiff_step_solve_kernels_match_plain(cuda, shape, radius):
+    """K6 and K7 at planes whose rows do not divide among the cluster's
+    16-row bands (40, 52 rows) and whose sides are no multiple of 8, at one
+    item, at 128^2 (a cluster of 8), at the 4x4 minimum, at R = 1, 2 and a
+    runtime radius (3); two launches give the same bits."""
     gen = torch.Generator().manual_seed(12)
-    m, u, gm, gu, ops = _solve_inputs(gen, (6, 2, 40, 36), cuda)
+    m, u, gm, gu, ops = _solve_inputs(gen, shape, cuda)
     before = (epdiff_kernels.solve_launches,
               epdiff_kernels.solve_bwd_launches)
     with torch.inference_mode():
-        outs = epdiff_kernels.epdiff_step_solve(m, u, 0.2, 2, 0.5, 1.0, 2)
-        refs = epdiff_kernels._epdiff_step_solve_plain(m, u, *ops, 0.2, 2)
-    gouts = epdiff_kernels.epdiff_step_solve_bwd(m, u, *ops, gm, gu, 0.2, 2)
+        outs, again = (epdiff_kernels.epdiff_step_solve(
+            m, u, 0.2, radius, 0.5, 1.0, 2) for _ in range(2))
+        refs = epdiff_kernels._epdiff_step_solve_plain(m, u, *ops, 0.2,
+                                                       radius)
+    gouts, gagain = (epdiff_kernels.epdiff_step_solve_bwd(
+        m, u, *ops, gm, gu, 0.2, radius) for _ in range(2))
     grefs = epdiff_kernels._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu,
-                                                        0.2, 2)
+                                                        0.2, radius)
     torch.cuda.synchronize()
     assert (epdiff_kernels.solve_launches,
-            epdiff_kernels.solve_bwd_launches) == (before[0] + 1,
-                                                   before[1] + 1)
-    for out, ref in zip(outs + gouts, refs + grefs):
+            epdiff_kernels.solve_bwd_launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    for out, rep, ref in zip(outs + gouts, again + gagain, refs + grefs):
+        assert torch.equal(out, rep)
         _close(out, ref)
+
+
+def test_epdiff_step_solve_refuses_planes_over_128(cuda):
+    """The kernels keep an item in a cluster's shared memory: a plane over
+    128 px a side raises before any launch."""
+    m = torch.zeros((1, 2, 130, 64), device=cuda)
+    ops = epdiff_kernels._solve_operands(130, 64, 0.5, 1.0, 2, cuda)
+    with pytest.raises(ValueError, match="128"):
+        epdiff_kernels.epdiff_step_solve(m, m, 0.2, 2, 0.5, 1.0, 2)
+    with pytest.raises(ValueError, match="128"):
+        epdiff_kernels.epdiff_step_solve_bwd(m, m, *ops, m, m, 0.2, 2)
 
 
 def test_epdiff_step_solve_backward_launches_k7_once(cuda):
