@@ -1,17 +1,23 @@
 """Dataset views over slice dicts (numpy only).
 
-Copy of ``cardiax/data/datasets.py`` (``JointDataset``,
-``BasicRegistrationDataset``, ``build_datasets``) and of
-``cardiax/data/frames.py:align_n_frames_to``; the other dataset types come
-with their schemes (ROADMAP A8) and raise. ``JointDataset`` items are
+Copy of ``cardiax/data/datasets.py`` (``SliceGroupedDataset`` and its four
+datasets, ``build_datasets``) and of ``cardiax/data/frames.py:
+align_n_frames_to``. Items, with frame axes cropped or edge-padded to the
+configured counts:
 
-    cine_myo_mask (1, T, H, W) f32, strain_matrix (1, 126, Ts) f32,
-    TOS (126,) f32,
+  * ``JointDataset``: cine_myo_mask (1, T, H, W), strain_matrix
+    (1, 126, Ts), TOS (126,);
+  * ``LMADataset``: displacement_field_X/Y (1, H, W, T), strain_mat
+    (1, 126, T), TOS, sector_LMA_labels (126,), slice_LMA_label (1,);
+  * ``StrainMatDataset``: displacement_field (2, H, W, T), strain_mat
+    (126, T) with no channel axis, TOS and the labels;
+  * ``BasicRegistrationDataset``: source_img/target_img (1, H, W) with
+    optional masks, DENSE displacements and labels.
 
-with T and Ts cropped or edge-padded to the configured frame counts;
-``BasicRegistrationDataset`` items are ``source_img``/``target_img``
-(1, H, W) f32 with optional masks, DENSE displacements and labels. Both
-carry the slice's non-array metadata.
+Float fields are f32, labels int64; every item carries the slice's
+non-array metadata. The LMA labels default to TOS > ``LMA_threshold`` of
+the dataset config (25). Each dataset groups its items by
+``slice_full_id`` (``get_slice``), which ``loader.SliceBatcher`` batches.
 """
 
 from __future__ import annotations
@@ -59,22 +65,74 @@ def _passthrough_meta(raw: Dict[str, Any], datum: Dict[str, Any]
     return datum
 
 
-class JointDataset:
+class SliceGroupedDataset:
+    """The shared base: length, metadata passthrough, and the grouping of
+    items by slice (``slice_full_id``, else the item's index), slice ids
+    sorted."""
+
+    def __init__(self, data: List[Dict[str, Any]],
+                 dataset_config: Dict[str, Any] | None = None,
+                 full_config: Dict[str, Any] | None = None,
+                 dataset_name: str | None = None):
+        self.data = [copy.copy(d) for d in data]
+        self.dataset_config = dataset_config or {}
+        self.full_config = full_config or {}
+        self.dataset_name = dataset_name
+        self._slice_to_indices: Dict[str, List[int]] = {}
+        for i, d in enumerate(self.data):
+            self._slice_to_indices.setdefault(
+                str(d.get("slice_full_id", i)), []).append(i)
+        self.slice_full_ids = sorted(self._slice_to_indices)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def get_subject_ids(self) -> List[str]:
+        return sorted({str(d["subject_id"]) for d in self.data})
+
+    def get_slice_full_ids(self) -> List[str]:
+        return list(self.slice_full_ids)
+
+    def get_n_slices(self) -> int:
+        return len(self.slice_full_ids)
+
+    def get_slice(self, slice_idx: int) -> List[Dict[str, Any]]:
+        sid = self.slice_full_ids[slice_idx]
+        return [self[i] for i in self._slice_to_indices[sid]]
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        raise NotImplementedError
+
+
+def _no_augmentation(cls: str, augmentation) -> None:
+    if augmentation:
+        raise NotImplementedError(
+            f"{cls}: augmentation is not ported yet (ROADMAP A1); pass None")
+
+
+def _lma_labels(raw: Dict[str, Any], datum: Dict[str, Any],
+                threshold) -> None:
+    """The item's sector labels (TOS > threshold unless given) and slice
+    label (any late sector unless given), int64."""
+    datum["sector_LMA_labels"] = np.asarray(
+        raw.get("sector_LMA_labels",
+                (datum["TOS"] > threshold).astype(np.int64)), dtype=np.int64)
+    datum["slice_LMA_label"] = np.asarray(
+        raw.get("slice_LMA_label",
+                [int(datum["sector_LMA_labels"].any())]),
+        dtype=np.int64).ravel()
+
+
+class JointDataset(SliceGroupedDataset):
     """Masks + GT strain + TOS for the joint reg+strain+LMA scheme."""
 
     def __init__(self, data: List[Dict[str, Any]], augmentation=None,
                  dataset_config: Dict[str, Any] | None = None,
                  full_config: Dict[str, Any] | None = None,
                  dataset_name: str | None = None):
-        if augmentation:
-            raise NotImplementedError(
-                "JointDataset: augmentation is not ported yet (ROADMAP A1); "
-                "pass None")
-        cfg = dataset_config or {}
-        self.dataset_config = cfg
-        self.full_config = full_config or {}
-        self.dataset_name = dataset_name
-        self.data = [copy.copy(d) for d in data]
+        _no_augmentation("JointDataset", augmentation)
+        super().__init__(data, dataset_config, full_config, dataset_name)
+        cfg = self.dataset_config
         self.n_myo_frames = int(cfg.get("n_myo_frames_to_use_for_regression", 20))
         self.n_strainmat_frames = int(cfg.get("n_strainmat_frames_to_use_for_regression", 40))
         self.cine_myo_mask_key = cfg.get("cine_myo_mask_key", "cine_lv_myo_masks")
@@ -85,9 +143,6 @@ class JointDataset:
                 d[self.cine_myo_mask_key], self.n_myo_frames, -1)
             d[self.strain_mat_key] = align_n_frames_to(
                 d[self.strain_mat_key], self.n_strainmat_frames, -1)
-
-    def __len__(self) -> int:
-        return len(self.data)
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
         raw = self.data[index]
@@ -100,21 +155,62 @@ class JointDataset:
         return _passthrough_meta(raw, datum)
 
 
-class BasicRegistrationDataset:
-    """Pairwise (source, target) frames with DENSE displacement supervision
-    (the pair dicts of ``synthetic.make_registration_pairs``)."""
+class _FramesDataset(SliceGroupedDataset):
+    """Displacement videos and strain matrices at
+    ``n_frames_to_use_for_regression`` frames (default 48)."""
 
-    def __init__(self, data: List[Dict[str, Any]],
+    def __init__(self, data: List[Dict[str, Any]], augmentation=None,
                  dataset_config: Dict[str, Any] | None = None,
                  full_config: Dict[str, Any] | None = None,
                  dataset_name: str | None = None):
-        self.data = [copy.copy(d) for d in data]
-        self.dataset_config = dataset_config or {}
-        self.full_config = full_config or {}
-        self.dataset_name = dataset_name
+        _no_augmentation(type(self).__name__, augmentation)
+        super().__init__(data, dataset_config, full_config, dataset_name)
+        self.n_frames = int(self.dataset_config.get(
+            "n_frames_to_use_for_regression", 48))
+        for d in self.data:
+            for k in ("displacement_field_X", "displacement_field_Y",
+                      "strain_matrix"):
+                if k in d:
+                    d[k] = align_n_frames_to(d[k], self.n_frames, -1)
 
-    def __len__(self) -> int:
-        return len(self.data)
+
+class LMADataset(_FramesDataset):
+    """Strain matrices (and displacement videos, where the data has them)
+    for the standalone LMA scheme."""
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        raw = self.data[index]
+        datum: Dict[str, Any] = {}
+        if "displacement_field_X" in raw:
+            datum["displacement_field_X"] = _f32(raw["displacement_field_X"])[None, ...]
+            datum["displacement_field_Y"] = _f32(raw["displacement_field_Y"])[None, ...]
+        if "strain_matrix" in raw:
+            datum["strain_mat"] = _f32(raw["strain_matrix"])[None, ...]
+        datum["TOS"] = _f32(raw["TOS"]).ravel()
+        _lma_labels(raw, datum, self.dataset_config.get("LMA_threshold", 25))
+        return _passthrough_meta(raw, datum)
+
+
+class StrainMatDataset(_FramesDataset):
+    """Displacement videos + GT strain matrices for the strain schemes."""
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        raw = self.data[index]
+        disp = np.concatenate([_f32(raw["displacement_field_X"])[None, ...],
+                               _f32(raw["displacement_field_Y"])[None, ...]],
+                              axis=0)
+        datum: Dict[str, Any] = {
+            "displacement_field": disp,                       # (2, H, W, T)
+            "strain_mat": _f32(raw["strain_matrix"]),         # (126, T)
+            "TOS": _f32(raw["TOS"]).ravel(),
+        }
+        _lma_labels(raw, datum, self.dataset_config.get("LMA_threshold", 25))
+        return _passthrough_meta(raw, datum)
+
+
+class BasicRegistrationDataset(SliceGroupedDataset):
+    """Pairwise (source, target) frames with DENSE displacement supervision
+    (the pair dicts of ``synthetic.make_registration_pairs``)."""
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
         raw = self.data[index]
@@ -141,6 +237,8 @@ class BasicRegistrationDataset:
 
 _DATASET_REGISTRY = {
     "JointDataset": JointDataset,
+    "LMADataset": LMADataset,
+    "StrainMatDataset": StrainMatDataset,
     "BasicRegistrationDataset": BasicRegistrationDataset,
 }
 
@@ -148,16 +246,15 @@ _DATASET_REGISTRY = {
 def build_datasets(datasets_config: Dict[str, Dict[str, Any]],
                    data_splits: Dict[str, Dict[str, Any]],
                    full_config: Dict[str, Any] | None = None
-                   ) -> Dict[str, Any]:
+                   ) -> Dict[str, SliceGroupedDataset]:
     """One dataset per entry of ``datasets_config``, over the slice dicts of
     the split(s) it names (``data_split`` may list several; they
     concatenate)."""
     datasets: Dict[str, Any] = {}
     for name, cfg in datasets_config.items():
         if cfg["type"] not in _DATASET_REGISTRY:
-            raise NotImplementedError(
-                f"dataset type {cfg['type']!r} is not ported yet (ROADMAP "
-                f"A8, with its scheme); ported: {sorted(_DATASET_REGISTRY)}")
+            raise KeyError(f"Unknown dataset type {cfg['type']!r}; "
+                           f"known: {sorted(_DATASET_REGISTRY)}")
         split_names: Sequence[str] = cfg.get("data_split", [name])
         if isinstance(split_names, str):
             split_names = [split_names]

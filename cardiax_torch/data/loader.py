@@ -1,9 +1,11 @@
 """Fixed-shape numpy batches with a ``sample_mask`` (numpy only).
 
 Copy of ``cardiax/data/loader.py`` (``epoch_permutation``, ``collate``,
-``_pad_batch``, ``Batcher``): the final partial batch is padded up to
-``batch_size`` by repeating its last item, and ``sample_mask`` marks real
-(1) and padded (0) items; non-array fields stay Python lists.
+``_pad_batch``, ``Batcher``, ``SliceBatcher``): the final partial batch is
+padded up to ``batch_size`` by repeating its last item, and ``sample_mask``
+marks real (1) and padded (0) items; non-array fields stay Python lists.
+``SliceBatcher`` batches whole slices of pair datasets as (S, P, ...)
+arrays with a ``pair_mask``.
 """
 
 from __future__ import annotations
@@ -88,4 +90,63 @@ class Batcher:
                 batch = _pad_batch(batch, len(idx), bs)
             else:
                 batch["sample_mask"] = np.ones((len(idx),), np.float32)
+            yield batch
+
+
+class SliceBatcher:
+    """Whole-slice batches of a pair dataset: each item is one (src, tar)
+    frame pair, and a slice (``dataset.get_slice``) owns a variable number
+    of them. Arrays are (S, P, ...): the slice axis is padded to
+    ``slices_per_batch`` by repeating the last slice, the pair axis cut or
+    zero-padded to ``max_pairs_per_slice``; ``pair_mask`` (S, P) marks the
+    real pairs (a repeated slice's too), ``sample_mask`` (S,) the real
+    slices. Non-array fields are nested lists [slice][pair]. The shuffle
+    is ``epoch_permutation(seed, epoch, n_slices)``."""
+
+    def __init__(self, dataset, slices_per_batch: int,
+                 max_pairs_per_slice: int, shuffle: bool = False,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.slices_per_batch = int(slices_per_batch)
+        self.max_pairs = int(max_pairs_per_slice)
+        self.shuffle = shuffle
+        self.seed = int(seed)
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def __len__(self) -> int:
+        ns = self.dataset.get_n_slices()
+        return (ns + self.slices_per_batch - 1) // self.slices_per_batch
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        ns = self.dataset.get_n_slices()
+        order = epoch_permutation(self.seed, self._epoch, ns) \
+            if self.shuffle else np.arange(ns)
+        self._epoch += 1
+        sb, mp = self.slices_per_batch, self.max_pairs
+        for start in range(0, ns, sb):
+            slice_ids = list(order[start:start + sb])
+            n_real = len(slice_ids)
+            slice_ids += slice_ids[-1:] * (sb - n_real)
+            per_slice = [self.dataset.get_slice(int(s)) for s in slice_ids]
+            batch: Dict[str, Any] = {}
+            for k, v0 in per_slice[0][0].items():
+                if isinstance(v0, np.ndarray):
+                    padded = []
+                    for items in per_slice:
+                        arrs = [np.asarray(it[k]) for it in items[:mp]]
+                        arrs += [np.zeros_like(arrs[-1])] * (mp - len(arrs))
+                        padded.append(np.stack(arrs, axis=0))
+                    batch[k] = np.stack(padded, axis=0)           # (S, P, ...)
+                else:
+                    batch[k] = [[it[k] for it in items] for items in per_slice]
+            pair_mask = np.zeros((sb, mp), np.float32)
+            for si, items in enumerate(per_slice):
+                pair_mask[si, :min(len(items), mp)] = 1.0
+            sample_mask = np.zeros((sb,), np.float32)
+            sample_mask[:n_real] = 1.0
+            batch["pair_mask"] = pair_mask
+            batch["sample_mask"] = sample_mask
             yield batch

@@ -2,7 +2,12 @@
 
 The tree is the scheme's ``{model_name: {"params": ...}}`` of numpy arrays,
 laid out as ``tests/golden/flagship_param_tree.json`` pins it for the
-flagship's two networks (``RegistrationNet``'s is its ``MomentumUNet_0``).
+flagship's two networks (``RegistrationNet``'s is its ``MomentumUNet_0``,
+``NetDisplacement2StrainMat``'s its ``ResNet3DStrainHead_0``;
+``NetDisplacement2LMA`` holds ``SpatioTemporalBlock_i``, ``Dense_0`` and
+the task's head ``Dense_1`` at the top, as a bare strain head does, but
+its ``Dense_0`` is 8x the first block's width where the strain head's is
+4x).
 Conv kernels go HWIO -> OIHW, dense kernels (in, out) -> (out, in),
 GroupNorm ``scale`` -> ``weight``, and the strain head's ``mix_kernel`` (3F, F), row blocks
 [W_p; W_y; W_n] of (in, out), becomes the (out=3F, in=F) matrix of the
@@ -70,8 +75,9 @@ def unet_state_dict(p: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tens
     return out
 
 
-def strain_head_state_dict(p: Dict[str, Any],
-                           prefix: str = "") -> Dict[str, torch.Tensor]:
+def _blocks_state_dict(p: Dict[str, Any],
+                       prefix: str) -> Dict[str, torch.Tensor]:
+    """The ``SpatioTemporalBlock_i`` of ``p`` as ``{prefix}blocks.{i}``."""
     out: Dict[str, torch.Tensor] = {}
     for i, blk in enumerate(_numbered(p, "SpatioTemporalBlock")):
         pre = f"{prefix}blocks.{i}"
@@ -82,6 +88,12 @@ def strain_head_state_dict(p: Dict[str, Any],
         k2 = k.reshape(3, f, f).transpose(1, 0, 2).reshape(f, 3 * f)
         out[f"{pre}.mix_weight"] = _t(k2.T)
         out[f"{pre}.mix_bias"] = _t(blk["mix_bias"])
+    return out
+
+
+def strain_head_state_dict(p: Dict[str, Any],
+                           prefix: str = "") -> Dict[str, torch.Tensor]:
+    out = _blocks_state_dict(p, prefix)
     dense = _numbered(p, "Dense")
     for name, d in zip(("fc", "sector", "frames"), dense):
         _dense(out, f"{prefix}{name}", d)
@@ -100,15 +112,33 @@ def registration_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def lma_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``NetStrainMat2LMA`` params -> its port's state_dict."""
+    """``NetStrainMat2LMA`` params -> its port's state_dict: the TOS head
+    (one output) is ``tos``, a classification head (two) ``head``."""
     out: Dict[str, torch.Tensor] = {}
     for i, blk in enumerate(_numbered(p, "SectorConvBlock")):
         _conv(out, f"convs.{i}.conv", blk["Conv_0"])
         _norm(out, f"convs.{i}.norm", blk["GroupNorm_0"])
-    fc, tos = _numbered(p, "Dense")
+    fc, head = _numbered(p, "Dense")
     _dense(out, "fc", fc)
-    _dense(out, "tos", tos)
+    _dense(out, "tos" if np.shape(head["bias"]) == (1,) else "head", head)
     return out
+
+
+def disp_lma_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``NetDisplacement2LMA`` params -> its port's state_dict."""
+    out = _blocks_state_dict(p, "")
+    fc, head = _numbered(p, "Dense")
+    _dense(out, "fc", fc)
+    _dense(out, "head", head)
+    return out
+
+
+def _is_disp_lma(p: Dict[str, Any]) -> bool:
+    """A top-level tree of ``SpatioTemporalBlock``s is
+    ``NetDisplacement2LMA``'s when its first dense is 8x the first block's
+    width (a strain head's is 4x)."""
+    width = np.shape(p["SpatioTemporalBlock_0"]["Conv_0"]["bias"])[0]
+    return np.shape(p["Dense_0"]["bias"])[0] == 8 * width
 
 
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -123,6 +153,13 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]
             out[name] = registration_state_dict(p)
         elif "SectorConvBlock_0" in p:
             out[name] = lma_state_dict(p)
+        elif "ResNet3DStrainHead_0" in p:
+            out[name] = strain_head_state_dict(p["ResNet3DStrainHead_0"],
+                                               "strain_head.")
+        elif "SpatioTemporalBlock_0" in p and _is_disp_lma(p):
+            out[name] = disp_lma_state_dict(p)
+        elif "SpatioTemporalBlock_0" in p:
+            out[name] = strain_head_state_dict(p)
         else:
             raise NotImplementedError(
                 f"{name}: no port for a model with params {sorted(p)[:4]}...")

@@ -3,8 +3,9 @@
 Counterpart of ``cardiax/losses/calculator.py`` (``mse_loss``,
 ``LossCalculator``): each enabled loss conf names a criterion, the
 pred/target keys it reads and a weight; the calculator returns
-``(total, {name: value, 'total_loss': total})``. Ported criteria:
-``MSELoss`` and ``registration_reconstruction``.
+``(total, {name: value, 'total_loss': total})``. The criteria are JAX's
+four: ``MSELoss``, ``CrossEntropyLoss``, ``registration_reconstruction``
+and ``gradient_magnitude``; another name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from cardiax_torch.losses.registration import registration_reconstruction_loss
+from cardiax_torch.losses.registration import (gradient_magnitude_loss,
+                                               registration_reconstruction_loss)
 
 
 def _masked_batch_mean(per_sample: torch.Tensor,
@@ -34,16 +37,37 @@ def mse_loss(outputs: Dict[str, Any], targets: Dict[str, Any],
                               targets.get(conf.get("mask", "sample_mask")))
 
 
+def cross_entropy_loss(outputs: Dict[str, Any], targets: Dict[str, Any],
+                       conf: Dict[str, Any]) -> torch.Tensor:
+    """Softmax cross entropy of logits (B, C, ...), class axis 1, against
+    integer labels (B, ...): labels with the logits' rank are one-hot and
+    reduced by argmax over axis 1 (tested first, as in JAX), then a
+    trailing label axis of 1 is squeezed. Per-sample mean, then the masked
+    batch mean."""
+    logits = outputs[conf["prediction"]].float()
+    labels = targets[conf["target"]]
+    if labels.ndim == logits.ndim:
+        labels = labels.argmax(dim=1)
+    if labels.ndim >= 2 and labels.shape[-1] == 1:
+        labels = labels[..., 0]
+    ce = F.cross_entropy(logits, labels.long(), reduction="none")
+    per_sample = ce.reshape(ce.shape[0], -1).mean(dim=1)
+    return _masked_batch_mean(per_sample,
+                              targets.get(conf.get("mask", "sample_mask")))
+
+
 _CRITERIA: Dict[str, Callable] = {
     "MSELoss": mse_loss,
+    "CrossEntropyLoss": cross_entropy_loss,
     "registration_reconstruction": registration_reconstruction_loss,
+    "gradient_magnitude": gradient_magnitude_loss,
 }
 
 
 def get_loss_function(criterion: str) -> Callable:
     if criterion not in _CRITERIA:
-        raise NotImplementedError(f"loss criterion {criterion!r} is not ported "
-                                  f"yet; ported: {sorted(_CRITERIA)}")
+        raise KeyError(f"Unknown loss criterion {criterion!r}; "
+                       f"known: {sorted(_CRITERIA)}")
     return _CRITERIA[criterion]
 
 

@@ -1,14 +1,47 @@
-"""Host-side evaluation metrics (numpy).
+"""Evaluation metrics.
 
-Copies of ``cardiax/losses/metrics.py``: ``binary_auc`` and
-``threshold_sweep_f1`` (the LMA metrics of the flagship scheme).
+Copies of ``cardiax/losses/metrics.py``: ``tos_sector_error`` (the headline
+metric, on tensors), ``classification_metrics`` (the LMA classification
+tasks) and the host-side ``binary_auc`` and ``threshold_sweep_f1`` (the LMA
+metrics of the flagship scheme).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def tos_sector_error(tos_pred: torch.Tensor, tos_true: torch.Tensor,
+                     sample_mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum |TOS_pred - TOS_GT|, number of real sectors), so callers can
+    accumulate across batches and divide once."""
+    err = (tos_pred.float() - tos_true.float()).abs()
+    if sample_mask is not None:
+        w = sample_mask.float().reshape(-1, *([1] * (err.ndim - 1)))
+        err = err * w
+        n = sample_mask.sum() * err.shape[-1]
+    else:
+        n = torch.tensor(float(err.numel()), device=err.device)
+    return err.sum(), n
+
+
+def classification_metrics(logits: np.ndarray, labels: np.ndarray
+                           ) -> Dict[str, float]:
+    """accuracy / precision / recall of argmax over the class axis 1;
+    precision and recall are 0 on an empty denominator."""
+    pred = np.argmax(logits, axis=1).reshape(-1)
+    true = np.asarray(labels).reshape(-1)
+    tp = float(np.sum((pred == 1) & (true == 1)))
+    fp = float(np.sum((pred == 1) & (true == 0)))
+    fn = float(np.sum((pred == 0) & (true == 1)))
+    acc = float(np.mean(pred == true))
+    precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+    recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+    return {"accuracy": acc, "precision": precision, "recall": recall}
 
 
 def binary_auc(scores: np.ndarray, labels: np.ndarray) -> float:

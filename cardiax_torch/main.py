@@ -24,17 +24,31 @@ import numpy as np
 import torch
 
 
-def _n_pairs(datasets: Dict[str, Any]) -> Optional[int]:
-    """Frame pairs per slice (T - 1), which size the joint network's strain
-    head: from the first item of the first non-empty dataset (None for
-    items without a mask video)."""
+def _first_item(datasets: Dict[str, Any]) -> Dict[str, Any]:
     for ds in datasets.values():
         if len(ds):
-            item = ds[0]
-            return int(item["cine_myo_mask"].shape[1]) - 1 \
-                if "cine_myo_mask" in item else None
+            return ds[0]
     raise ValueError("every dataset is empty — check the split patterns "
                      "against the data's subject ids")
+
+
+def _shapes(item: Dict[str, Any]) -> Dict[str, Any]:
+    """What PyTorch needs at construction and flax infers at the first
+    call, from one dataset item: the frame pairs per slice (T - 1) of a
+    mask video, which size the joint network's strain head, and the (H, W)
+    of the displacement frames, which size ``NetDisplacement2LMA``'s dense
+    layer (None where the item has neither)."""
+    n_pairs = int(item["cine_myo_mask"].shape[1]) - 1 \
+        if "cine_myo_mask" in item else None
+    frame_size = None
+    if "source_img" in item:                             # (1, H, W)
+        frame_size = tuple(item["source_img"].shape[-2:])
+    else:
+        for key in ("displacement_field_X", "displacement_field"):
+            if key in item:                              # (C, H, W, T)
+                frame_size = tuple(item[key].shape[1:3])
+                break
+    return {"n_pairs": n_pairs, "frame_size": frame_size}
 
 
 def _saved_model_file(path: Path, name: str) -> Optional[Path]:
@@ -95,8 +109,8 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
         print(f"dataset {name}: {len(ds)}")
 
     # 3. models
-    n_pairs = _n_pairs(datasets)
-    networks = {name: build_model(mc, n_pairs=n_pairs)
+    shapes = _shapes(_first_item(datasets))
+    networks = {name: build_model(mc, **shapes)
                 for name, mc in config["networks"].items()}
     print(f"device: {trainer.device}")
 

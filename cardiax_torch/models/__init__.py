@@ -1,26 +1,30 @@
 """Model factory: config dict -> ``ModelBundle`` (module + config).
 
-Counterpart of ``cardiax/models/__init__.py:build_model`` for the networks
-of the ported schemes: ``JointRegisterStrainMatNet`` and
-``NetStrainMat2LMA`` (the flagship) and ``RegistrationNet`` with its alias
-``VoxelmorphLike`` (``reg``). Other types raise. Unlike flax, PyTorch sizes
-every layer at construction, so the joint network needs ``n_pairs`` (frame
-pairs per slice, T - 1): the caller passes it.
+Counterpart of ``cardiax/models/__init__.py:build_model``, with JAX's seven
+type names: ``NetStrainMat2LMA``, ``NetDisplacement2LMA``,
+``RegistrationNet`` (alias ``VoxelmorphLike``),
+``NetDisplacement2StrainMat`` (alias ``masks_to_strain_mat``) and
+``JointRegisterStrainMatNet``; another name raises ``KeyError``. Unlike
+flax, PyTorch sizes every layer at construction, so the caller passes what
+flax infers at the first call: ``n_pairs`` (frame pairs per slice, T - 1)
+for the joint network and ``frame_size`` (H, W) of the displacement
+frames for ``NetDisplacement2LMA``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from cardiax_torch.models.joint_net import JointRegisterStrainMatNet
 from cardiax_torch.models.layers import Conv, Dense, GroupNorm, lecun_normal_
-from cardiax_torch.models.lma_net import NetStrainMat2LMA
+from cardiax_torch.models.lma_net import NetDisplacement2LMA, NetStrainMat2LMA
 from cardiax_torch.models.registration import RegistrationNet
-from cardiax_torch.models.strain_net import (ResNet3DStrainHead,
+from cardiax_torch.models.strain_net import (NetDisplacement2StrainMat,
+                                             ResNet3DStrainHead,
                                              SpatioTemporalBlock)
 from cardiax_torch.models.unet import MomentumUNet
 
@@ -38,13 +42,16 @@ class ModelBundle:
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The flax initialisers, leaf by leaf, drawn from ``generator``:
+    """The flax initialisers, leaf by leaf, drawn from ``generator``, for
+    every network of the factory:
 
     * Conv and Dense kernels: truncated ``lecun_normal`` (fan_in = input
-      channels x taps, or input features); biases zero;
+      channels x taps, or input features; the LMA nets' heads too); biases
+      zero;
     * GroupNorm: unit scale, zero bias;
-    * the strain head's temporal mix: ``mix_kernel`` ``lecun_normal`` over
-      its flax shape (3F, F), so fan_in = 3F (``strain_net.py:77-79``);
+    * every ``SpatioTemporalBlock``'s temporal mix (the strain heads' and
+      ``NetDisplacement2LMA``'s): ``mix_kernel`` ``lecun_normal`` over its
+      flax shape (3F, F), so fan_in = 3F (``strain_net.py:77-79``);
       ``mix_bias`` zero;
     * the momentum head of every ``MomentumUNet`` (the joint network's and
       ``RegistrationNet``'s): zero kernel and bias, so shooting starts from
@@ -75,8 +82,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def _build_registration(cfg: Dict[str, Any],
-                        n_pairs: Optional[int]) -> ModelBundle:
+def _build_registration(cfg: Dict[str, Any], n_pairs: Optional[int],
+                        frame_size) -> ModelBundle:
     if cfg.get("channel_pack"):
         raise NotImplementedError("channel_pack is a TPU layout; not ported")
     module = RegistrationNet(
@@ -95,7 +102,8 @@ def _build_registration(cfg: Dict[str, Any],
                        sigma=float(cfg.get("sigma", 0.03)))
 
 
-def _build_lma(cfg: Dict[str, Any], n_pairs: Optional[int]) -> ModelBundle:
+def _build_lma(cfg: Dict[str, Any], n_pairs: Optional[int],
+               frame_size) -> ModelBundle:
     module = NetStrainMat2LMA(
         LMA_task=cfg.get("LMA_task", "TOS_regression"),
         num_conv_layers=int(cfg.get("num_conv_layers", 3)),
@@ -108,8 +116,32 @@ def _build_lma(cfg: Dict[str, Any], n_pairs: Optional[int]) -> ModelBundle:
     return ModelBundle(module=module, config=dict(cfg))
 
 
+def _build_disp_lma(cfg: Dict[str, Any], n_pairs: Optional[int],
+                    frame_size) -> ModelBundle:
+    module = NetDisplacement2LMA(
+        LMA_task=cfg.get("LMA_task", "TOS_regression"),
+        n_sectors=int(cfg.get("n_sectors", 126)),
+        features=int(cfg.get("inner_conv_channel_num", 16)),
+        num_conv_layers=int(cfg.get("num_conv_layers", 3)),
+        time_axis_last=bool(cfg.get("time_axis_last", True)),
+        frame_size=frame_size,
+    )
+    return ModelBundle(module=module, config=dict(cfg))
+
+
+def _build_strainmat(cfg: Dict[str, Any], n_pairs: Optional[int],
+                     frame_size) -> ModelBundle:
+    # strain_tmix selects one of three lowerings of one math in JAX
+    module = NetDisplacement2StrainMat(
+        n_sectors=int(cfg.get("n_sectors", 126)),
+        features=int(cfg.get("features", 16)),
+    )
+    return ModelBundle(module=module, config=dict(cfg))
+
+
 def _build_joint_register_strainmat(cfg: Dict[str, Any],
-                                    n_pairs: Optional[int]) -> ModelBundle:
+                                    n_pairs: Optional[int],
+                                    frame_size) -> ModelBundle:
     if n_pairs is None:
         raise ValueError("JointRegisterStrainMatNet needs n_pairs (frames "
                          "per slice - 1) to size its strain head")
@@ -139,18 +171,21 @@ def _build_joint_register_strainmat(cfg: Dict[str, Any],
 
 _MODEL_REGISTRY = {
     "NetStrainMat2LMA": _build_lma,
+    "NetDisplacement2LMA": _build_disp_lma,
     "RegistrationNet": _build_registration,
     "VoxelmorphLike": _build_registration,
+    "NetDisplacement2StrainMat": _build_strainmat,
+    "masks_to_strain_mat": _build_strainmat,
     "JointRegisterStrainMatNet": _build_joint_register_strainmat,
 }
 
 
-def build_model(model_config: Dict[str, Any],
-                n_pairs: Optional[int] = None) -> ModelBundle:
-    """``build_model(model_config)`` keyed on ``model_config['type']``."""
+def build_model(model_config: Dict[str, Any], n_pairs: Optional[int] = None,
+                frame_size: Optional[Tuple[int, int]] = None) -> ModelBundle:
+    """``build_model(model_config)`` keyed on ``model_config['type']``;
+    ``n_pairs`` and ``frame_size`` size the networks that need them."""
     mtype = model_config["type"]
     if mtype not in _MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model type {mtype!r} is not ported yet; ported: "
-            f"{sorted(_MODEL_REGISTRY)}")
-    return _MODEL_REGISTRY[mtype](model_config, n_pairs)
+        raise KeyError(f"Unknown model type {mtype!r}; "
+                       f"known: {sorted(_MODEL_REGISTRY)}")
+    return _MODEL_REGISTRY[mtype](model_config, n_pairs, frame_size)

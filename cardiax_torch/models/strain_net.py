@@ -1,7 +1,9 @@
 """Strain head: motion video -> (n_sectors, T_out) strain matrix.
 
 Counterpart of ``cardiax/models/strain_net.py`` (``SpatioTemporalBlock`` with
-``tmix='shiftflat'`` and ``ResNet3DStrainHead``). Each block is a folded-2D
+``tmix='shiftflat'``, ``ResNet3DStrainHead`` and
+``NetDisplacement2StrainMat``, the head on a (B, 2, H, W, T) displacement
+video). Each block is a folded-2D
 stride-2 spatial conv + GroupNorm + gelu, then the temporal (3,1,1) mix
 
     z_t = W_p y_{t-1} + W_y y_t + W_n y_{t+1} + b   (edge frames replicate)
@@ -13,7 +15,7 @@ and the dense heads are float32.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -81,3 +83,15 @@ class ResNet3DStrainHead(nn.Module):
         if self.frames is not None:
             strain = self.frames(strain)
         return strain
+
+
+class NetDisplacement2StrainMat(nn.Module):
+    """disp (B, 2, H, W, T) -> {'strainmat': (B, n_sectors, T)}: the strain
+    head on the (B, T, H, W, 2) video, with no frame projection."""
+
+    def __init__(self, n_sectors: int = 126, features: int = 16):
+        super().__init__()
+        self.strain_head = ResNet3DStrainHead(n_sectors, features)
+
+    def forward(self, disp: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"strainmat": self.strain_head(disp.permute(0, 4, 2, 3, 1))}

@@ -41,6 +41,7 @@ from cardiax_torch.device import resolve_device
 from cardiax_torch.io.checkpoints import CheckpointManager
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.losses.calculator import LossCalculator
+from cardiax_torch.losses.metrics import classification_metrics
 from cardiax_torch.models import init_weights
 from cardiax_torch.train.optim import build_optimizer
 
@@ -99,17 +100,32 @@ class Scheme:
 
     def performance(self, preds: List[Dict[str, Any]], dataset_name: str
                     ) -> Dict[str, float]:
-        """TOS sector error: mean |TOS_pred - TOS| over real sectors (the
-        classification metrics come with the classification heads)."""
+        """TOS sector error (mean |TOS_pred - TOS| over real sectors) and,
+        where the samples hold LMA logits and labels, the classification
+        metrics (``final-{ds}/accuracy|precision|recall``): sector logits
+        (2, S) as they are, slice logits (2,) as (2, 1)."""
         perf: Dict[str, float] = {}
         err_sum, n_sec = 0.0, 0.0
+        logits_all, labels_all = [], []
         for p in preds:
             if "TOS_pred" in p and "TOS" in p:
                 err_sum += float(np.abs(np.asarray(p["TOS_pred"])
                                         - np.asarray(p["TOS"])).sum())
                 n_sec += np.asarray(p["TOS"]).size
+            if "sector_LMA_labels_pred" in p and "sector_LMA_labels" in p:
+                logits_all.append(np.asarray(p["sector_LMA_labels_pred"]))
+                labels_all.append(np.asarray(p["sector_LMA_labels"]))
+            elif "slice_LMA_label_pred" in p and "slice_LMA_label" in p:
+                logits_all.append(
+                    np.asarray(p["slice_LMA_label_pred"])[..., None])
+                labels_all.append(np.asarray(p["slice_LMA_label"]))
         if n_sec > 0:
             perf[f"final-{dataset_name}/sector_error"] = err_sum / n_sec
+        if logits_all:
+            cm = classification_metrics(np.stack(logits_all),
+                                        np.stack(labels_all))
+            for k, v in cm.items():
+                perf[f"final-{dataset_name}/{k}"] = v
         return perf
 
 

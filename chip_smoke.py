@@ -71,13 +71,23 @@ prints no result without CUDA. Phases, one line each:
    10, test 10) for 2 epochs with checkpoints: finite losses, the exact
    launches of K1-K4 (K5-K7: 0); one reg train step kernel vs plain, and
    its host and device time and peak device memory;
-10. the kernel table as one JSON line, then the result line
+10. schemes: ``cardiax_torch.main.run`` on configs/lma.json,
+   lma_classification.json, strainmat_pred.json, strainmat_lma.json and
+   joint_reg_regression.json as written but for data, split, epochs (2)
+   and saving_dir, over synthetic 128^2 slices with T=20 and displacement
+   fields (frame pairs for the last): finite losses each epoch, JAX's
+   metric keys, a checkpoint each epoch, and for joint_registration_
+   regression the exact launches of K1-K4 (K5-K7: 0); its train step on
+   slice batches of 4 slices x 19 pairs (76 items of 128^2) kernel vs
+   plain, with its host and device time and peak device memory; the
+   train step time of the other four configs;
+11. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
 train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt``,
-``DIR/large_train_profile.txt``, ``DIR/solve_train_profile.txt`` and
-``DIR/reg_train_profile.txt``.
+``DIR/large_train_profile.txt``, ``DIR/solve_train_profile.txt``,
+``DIR/reg_train_profile.txt`` and ``DIR/regression_train_profile.txt``.
 ``--baseline DIR`` builds the kernels of DIR (a checkout of an earlier
 commit, ``git archive``) as well, times each kernel alone in turns with
 this tree's (baseline, this, this, baseline) and says whether K1's and
@@ -845,7 +855,7 @@ def check_solve_all(dev):
     return entries
 
 
-def random_nets(cfg, n_pairs, seed: int):
+def random_nets(cfg, n_pairs, seed: int, frame_size=None):
     """The configured networks with seeded random weights. JAX
     zero-initialises every momentum head (every warp would be the
     identity); small random weights there make the shooting and the warps
@@ -853,7 +863,7 @@ def random_nets(cfg, n_pairs, seed: int):
     from cardiax_torch.models import build_model, init_weights
     from cardiax_torch.models.unet import MomentumUNet
     gen = torch.Generator().manual_seed(seed)
-    nets = {name: build_model(mc, n_pairs=n_pairs)
+    nets = {name: build_model(mc, n_pairs=n_pairs, frame_size=frame_size)
             for name, mc in cfg["networks"].items()}
     for b in nets.values():
         init_weights(b.module, gen)
@@ -1363,12 +1373,13 @@ def step_gate(label, what, values_a, grads_a, values_b, grads_b):
             f"{sorted(rel.values())[len(rel) // 2]:.3e}")
 
 
-def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship"):
+def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship",
+                         frame_size=None):
     """One train step (loss and every parameter's gradient) through the
     kernels and through the plain versions, on the same random weights.
     ``n_pairs`` sizes the joint network (the flagship's T - 1 by default;
-    None for ``reg``). Returns a factory of fresh engines and the batch on
-    the card."""
+    None for ``reg``), ``frame_size`` a ``NetDisplacement2LMA``. Returns a
+    factory of fresh engines and the batch on the card."""
     from cardiax_torch.ops import epdiff_kernels as ek
     from cardiax_torch.ops import shooting as sh
     from cardiax_torch.ops import warp_kernels as wk
@@ -1379,7 +1390,8 @@ def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship"):
 
     def fresh_engine():
         engine = build_trainer(cfg["training"], None, cfg)
-        engine.setup(random_nets(cfg, n_pairs, seed=1), steps_per_epoch=3)
+        engine.setup(random_nets(cfg, n_pairs, seed=1, frame_size=frame_size),
+                     steps_per_epoch=3)
         return engine
 
     engine = fresh_engine()
@@ -1400,9 +1412,10 @@ def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship"):
     grads_p = grads_of(engine)
     summary = step_gate(label, "kernel vs plain", values_k, grads_k,
                         values_p, grads_p)
-    print(f"{summary}; max|u_inv| "
-          f"{values_k['max_abs_displacement'].item():.3f} px; launches "
-          f"(K2, K3, K1, K4, K5, K6, K7) {step_counts}")
+    disp = values_k.get("max_abs_displacement")
+    print(f"{summary}; "
+          + ("" if disp is None else f"max|u_inv| {disp.item():.3f} px; ")
+          + f"launches (K2, K3, K1, K4, K5, K6, K7) {step_counts}")
     return fresh_engine, arrays
 
 
@@ -1417,6 +1430,22 @@ def step_time_ms(engine, arrays, reps: int = 10) -> float:
         engine.train_step(arrays)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+def step_line(label, engine, arrays, what, card):
+    """The train step's host time (10 synchronised steps after 2 warm-up
+    steps), its device busy time and idle share (profiler), and its peak
+    device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    step_ms = step_time_ms(engine, arrays, reps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy_ms, prof = profile_steps(lambda: engine.train_step(arrays))
+    print(f"{label} train step ({card}): {step_ms:.3f} ms/batch of {what} "
+          f"({reps} steps after 2 warm-up steps, host clock); "
+          f"{busy_line(busy_ms, step_ms)}; peak device memory "
+          f"{peak_gb:.3f} GB")
+    return prof
 
 
 def run_train_step(profile_dir):
@@ -1679,18 +1708,169 @@ def run_reg(tmp: Path, card: str, profile_dir):
     batch = next(iter(Batcher(ds, batch_size)))
     fresh_engine, arrays = kernel_vs_plain_step(cfg, batch, "reg train step",
                                                 n_pairs=None)
-    engine = fresh_engine()
-    torch.cuda.reset_peak_memory_stats()
-    reps = 10
-    step_ms = step_time_ms(engine, arrays, reps)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    busy_ms, prof = profile_steps(lambda: engine.train_step(arrays))
-    print(f"reg train step ({card}): {step_ms:.3f} ms/batch of {batch_size} "
-          f"pairs = {batch_size / step_ms * 1e3:.1f} pairs/s ({reps} steps "
-          f"after 2 warm-up steps, host clock); {busy_line(busy_ms, step_ms)}"
-          f"; peak device memory {peak_gb:.3f} GB")
+    prof = step_line("reg", fresh_engine(), arrays, f"{batch_size} pairs",
+                     card)
     if profile_dir:
         write_profile(prof, Path(profile_dir), "reg_train")
+    return launches
+
+
+# JAX's metric keys of each config after ``test`` (as
+# ``final-{dataset}/{key}``): the scheme's performance and a loss_ key per
+# loss value. tests/test_torch_lma_schemes.py and test_torch_regression.py
+# hold the port's keys and values to JAX's on the CPU.
+SCHEME_METRICS = {
+    "lma": ("sector_error", "loss_TOS_regression", "loss_total_loss"),
+    "lma_classification": ("accuracy", "precision", "recall",
+                           "loss_sector_CE", "loss_total_loss"),
+    "strainmat_pred": ("strainmat_mse", "loss_strainmat_MSE",
+                       "loss_total_loss"),
+    "strainmat_lma": ("sector_error", "loss_strainmat_MSE",
+                      "loss_TOS_regression", "loss_total_loss"),
+    "joint_reg_regression": ("sector_error",
+                             "loss_registration_reconstruction",
+                             "loss_TOS_regression", "loss_total_loss"),
+}
+
+
+def scheme_main_run(name, npy, tmp: Path, split):
+    """``main.run`` on configs/{name}.json with only its data, split,
+    epochs (2) and saving_dir changed, checkpoints on: finite losses each
+    epoch, JAX's metric keys, a checkpoint each epoch. Returns the config,
+    the result, the launches and the host seconds."""
+    from cardiax_torch import main as port_main
+    from cardiax_torch.io.checkpoints import CheckpointManager
+    from cardiax_torch.ops import epdiff_kernels as ek
+    from cardiax_torch.ops import warp_kernels as wk
+    cfg = json.loads((ROOT / "configs" / f"{name}.json").read_text())
+    changes = {"training.epochs": 2,
+               "saving.saving_dir": str(tmp / name),
+               "data.npy_filename": str(npy),
+               "data_split": {"method": "by_count", "splits": split}}
+    set_fields(cfg, changes)
+    zero_counts(ek, wk)
+    t0 = time.perf_counter()
+    with watched_main_run() as watch:
+        res = port_main.run(copy.deepcopy(cfg))
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = named_counts(ek, wk)
+    hist = res["train_loss_dict"]
+    for key in ("train/total_loss", "val/total_loss"):
+        require(len(hist[key]) == 2
+                and all(math.isfinite(v) for v in hist[key]),
+                f"schemes {name}: {key} per epoch: {hist[key]}")
+    for t in ("val", "test"):
+        perf = res[f"{t}_performance"]
+        want = {f"final-{t}/{k}" for k in SCHEME_METRICS[name]}
+        require(set(perf) == want,
+                f"schemes {name}: {t} metrics {sorted(perf)} != "
+                f"{sorted(want)}")
+        require(all(math.isfinite(v) for v in perf.values()),
+                f"schemes {name}: {t} metrics {perf}")
+    saved = CheckpointManager(tmp / name / "checkpoints").epochs()
+    require(saved == [0, 1], f"schemes {name}: checkpoints {saved}")
+    test = {k.split("/")[1]: round(v, 6)
+            for k, v in res["test_performance"].items()}
+    print(f"schemes {name}: main.run with {json.dumps(changes)} in "
+          f"{secs:.2f} s; total_loss per epoch train "
+          f"{[round(v, 6) for v in hist['train/total_loss']]}, val "
+          f"{[round(v, 6) for v in hist['val/total_loss']]}; test {test}; "
+          f"checkpoints of epochs {saved} ({save_text(watch.saves)})")
+    return cfg, launches
+
+
+def run_schemes(tmp: Path, card: str, profile_dir):
+    """The four schemes of ``cardiax_torch.train.schemes`` beside the
+    flagship and ``reg``: ``main.run`` on configs/lma.json,
+    lma_classification.json, strainmat_pred.json, strainmat_lma.json and
+    joint_reg_regression.json (synthetic 128^2 slices, T=20, with
+    displacement fields; frame pairs for the last); exact launches of
+    joint_registration_regression (K2/K3 5 a train step, K1/K4 1, K5-K7
+    none); its train step on slice batches as JAX's own test builds them
+    (4 slices x 19 pairs = 76 items of 128^2) kernel vs plain, with its
+    host and device time and peak memory; and the train step time of the
+    other four configs."""
+    from cardiax_torch.data.datasets import build_datasets
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.synthetic import (add_displacement_fields,
+                                              make_dataset,
+                                              make_registration_pairs,
+                                              save_npy)
+    from cardiax_torch.train import build_trainer
+    slices = add_displacement_fields(make_dataset(
+        n_subjects=6, slices_per_subject=5, h=128, w=128, n_frames=20,
+        seed=10), seed=10)
+    npy = tmp / "slices.npy"
+    save_npy(str(npy), slices)
+    split = {"train": {"count": 20}, "val": {"count": 5},
+             "test": {"count": 5}}
+    cfgs = {name: scheme_main_run(name, npy, tmp, split)[0]
+            for name in ("lma", "lma_classification", "strainmat_pred",
+                         "strainmat_lma")}
+
+    # joint_registration_regression: main.run gives every pair its own
+    # slice id (load_data), so its batches are 4 slices x 1 pair
+    pair_slices = make_dataset(n_subjects=4, slices_per_subject=1, h=128,
+                               w=128, n_frames=20, seed=11)
+    pairs = make_registration_pairs(add_displacement_fields(pair_slices,
+                                                            seed=11))
+    require(len(pairs) == 76, f"schemes: {len(pairs)} pairs, not 76")
+    pairs_npy = tmp / "pairs.npy"
+    save_npy(str(pairs_npy), pairs)
+    n_train, n_val, n_test = 40, 18, 18
+    cfg, launches = scheme_main_run(
+        "joint_reg_regression", pairs_npy, tmp,
+        {"train": {"count": n_train}, "val": {"count": n_val},
+         "test": {"count": n_test}})
+    batch_size = int(cfg["training"]["batch_size"])
+    n_steps = n_euler_steps(cfg)
+    vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
+                           * 2))
+    # val each epoch, the first val batch of each figure epoch, final val
+    # and test
+    train_steps = 2 * math.ceil(n_train / batch_size)
+    eval_batches = 2 * math.ceil(n_val / batch_size) \
+        + len(range(0, 2, vis_every)) + math.ceil(n_val / batch_size) \
+        + math.ceil(n_test / batch_size)
+    expect = {"mc_warp_fwd": train_steps + eval_batches,
+              "epdiff_step_fwd": n_steps * (train_steps + eval_batches),
+              "epdiff_step_bwd": n_steps * train_steps,
+              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
+    require(launches == expect,
+            f"schemes joint_reg_regression launches {launches} != {expect}")
+    print(f"schemes joint_reg_regression: {train_steps} train steps + "
+          f"{eval_batches} eval batches of {batch_size} slices x 1 pair; "
+          f"launches {launches}")
+
+    # the slice batches of JAX's own test: the pairs' slice ids kept
+    dataset = build_datasets({"train": cfg["datasets"]["train"]},
+                             {"train": {"data": pairs}}, cfg)["train"]
+    engine = build_trainer(cfg["training"], None, cfg)
+    loader = engine.scheme.make_loader(dataset, batch_size, shuffle=False)
+    batch = next(iter(loader))
+    require(batch["source_img"].shape[:2] == (4, 19)
+            and batch["pair_mask"].all(),
+            f"schemes: slice batch {batch['source_img'].shape}")
+    fresh_engine, arrays = kernel_vs_plain_step(
+        cfg, batch, "joint_reg_regression train step", n_pairs=None,
+        frame_size=batch["source_img"].shape[-2:])
+    prof = step_line("joint_reg_regression", fresh_engine(), arrays,
+                     "4 slices x 19 pairs (76 items of 128^2)", card)
+    if profile_dir:
+        write_profile(prof, Path(profile_dir), "regression_train")
+
+    # the other four configs' train steps, random weights
+    for name, c in cfgs.items():
+        ds_cfg = c["datasets"]["train"]
+        ds = build_datasets({"train": ds_cfg},
+                            {"train": {"data": slices}}, c)["train"]
+        bs = int(c["training"]["batch_size"])
+        engine = build_trainer(c["training"], None, c)
+        engine.setup(random_nets(c, None, seed=1), steps_per_epoch=3)
+        arrays = engine.to_device(next(iter(Batcher(ds, bs))))
+        step_line(name, engine, arrays, f"{bs} slices", card)
     return launches
 
 
@@ -1793,8 +1973,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="directory for profiler tables of the eval, train, "
-                         "large train, fused-solve train and reg train "
-                         "steps")
+                         "large train, fused-solve train, reg train and "
+                         "regression train steps")
     ap.add_argument("--baseline", default=None,
                     help="a checkout of an earlier commit whose kernels "
                          "take the same C arguments: each kernel alone is "
@@ -1832,9 +2012,12 @@ def main(argv=None) -> int:
         paths["solve"] = run_solve(Path(tmp), args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         paths["reg"] = run_reg(Path(tmp), card, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["regression"] = run_schemes(Path(tmp), card, args.profile)
     # launches: K1-K4 from the flagship's training run, K5 from the ops
     # path (the only one that needs a field gradient), K6/K7 from the
-    # fused-solve run; every path's counts beside them (reg: K1-K4)
+    # fused-solve run; every path's counts beside them (reg and
+    # regression: K1-K4)
     main_path = {"mc_warp_fwd": "train", "epdiff_step_fwd": "train",
                  "epdiff_step_bwd": "train", "mc_warp_disp_bwd": "train",
                  "mc_warp_fused_bwd": "ops", "epdiff_step_solve_fwd": "solve",

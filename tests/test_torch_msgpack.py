@@ -12,9 +12,12 @@
   magnitude (bf16-level, as ``tests/test_torch_models.py``);
 * a warm start through ``main.run`` (``load_pretrained_model``) loads
   exactly the saved tensors, and the port's ``model-{name}.pt`` of the
-  inference run holds them too.
+  inference run holds them too; so does one of a JAX
+  ``NetDisplacement2LMA`` (``configs/lma.json`` on the displacement
+  modality) and of a JAX ``NetDisplacement2StrainMat``
+  (``configs/strainmat_pred.json``).
 
-About 30 s on the CPU, most of it compiling the JAX model.
+About 35 s on the CPU, most of it compiling the JAX model.
 """
 
 import copy
@@ -240,3 +243,59 @@ def test_load_model_params_checks_the_template(jax_run):
     bad["fc.weight"] = torch.zeros(3, 3)
     with pytest.raises(ValueError, match="fc.weight"):
         load_model_params(path, bad)
+
+
+# --------------------------------------------------------------------------- #
+# Warm starts of the displacement networks                                     #
+# --------------------------------------------------------------------------- #
+
+def _displacement_config(kind, tmp_path):
+    """``configs/lma.json`` with a ``NetDisplacement2LMA`` on the
+    displacement modality, or ``configs/strainmat_pred.json``, over 16^2
+    slices with displacement fields, for one epoch at learning rate 0."""
+    from cardiax_torch.data.synthetic import add_displacement_fields
+    name = "lma" if kind == "NetDisplacement2LMA" else "strainmat_pred"
+    cfg = json.loads((CONFIG.parent / f"{name}.json").read_text())
+    npy = tmp_path / "slices.npy"
+    save_npy(str(npy), add_displacement_fields(make_dataset(
+        n_subjects=3, slices_per_subject=1, h=16, w=16, n_frames=6,
+        seed=12), seed=12))
+    cfg["data"]["npy_filename"] = str(npy)
+    cfg["data_split"] = {"method": "by_count", "splits": {
+        "train": {"count": 2}, "val": {"count": 1}, "test": {}}}
+    if kind == "NetDisplacement2LMA":
+        cfg["networks"]["LMA"] = {"type": kind, "num_conv_layers": 3,
+                                  "inner_conv_channel_num": 4}
+        cfg["training"]["LMA_modality"] = "displacement_field"
+        cfg["data"]["data_to_feed"] += [{"key": "displacement_field_X"},
+                                        {"key": "displacement_field_Y"}]
+    else:
+        cfg["networks"]["masks_to_strain_mat"]["features"] = 4
+    for opt in cfg["training"]["optimizers"].values():
+        opt["learning_rate"] = 0.0       # the step leaves the weights alone
+    cfg["training"].update(epochs=1, test=False, load_pretrained_model=True,
+                           pretrained_model_path=str(tmp_path / "jax"))
+    cfg["saving"].update(saving_dir=str(tmp_path / "port"),
+                         save_checkpoint=False)
+    return cfg
+
+
+@pytest.mark.parametrize("kind", ["NetDisplacement2LMA",
+                                  "NetDisplacement2StrainMat"])
+def test_warm_start_of_a_jax_displacement_net(kind, tmp_path):
+    cfg = _displacement_config(kind, tmp_path)
+    (name, net), = cfg["networks"].items()
+    n_frames = cfg["datasets"]["train"]["n_frames_to_use_for_regression"]
+    video = jnp.zeros((1, 2, 16, 16, n_frames), jnp.float32)
+    params = jax.jit(jax_build_model(net).module.init)(jax.random.PRNGKey(3),
+                                                       video)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax" / f"model-{name}.msgpack").write_bytes(
+        serialization.to_bytes(params))
+    want = params_from_flax({name: jax.tree_util.tree_map(
+        lambda a: np.array(a, np.float32), params)})[name]
+    res = port_main.run(cfg, device="cpu")
+    got = res["models"][f"{name}_model"].module.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

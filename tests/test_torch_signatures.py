@@ -1,5 +1,6 @@
-"""The port's engine, datasets, export, checkpoints, the reg scheme and
-model factory take JAX's parameters.
+"""The port's engine, datasets, loaders, export, checkpoints, schemes,
+networks, losses and model factory take JAX's parameters, and its
+registries hold JAX's names.
 
 ``tests/test_torch_solve.py::test_port_ops_have_the_jax_signatures`` holds
 every name of ``cardiax_torch.ops`` against ``cardiax.ops``; this file
@@ -32,10 +33,38 @@ import cardiax_torch.main as tmain
 import cardiax_torch.models as tmodels
 import cardiax_torch.ops.fluid_metric as tfm
 import cardiax_torch.train.engine as tengine
+import cardiax.data.loader as jloader
+import cardiax.losses.calculator as jcalc
+import cardiax.losses.metrics as jmetrics
+import cardiax.losses.registration as jreg_losses
+import cardiax.train as jtrain
+import cardiax_torch.data.loader as tloader
+import cardiax_torch.losses.calculator as tcalc
+import cardiax_torch.losses.metrics as tmetrics
+import cardiax_torch.losses.registration as treg_losses
+import cardiax_torch.train as ttrain
+from cardiax.models.lma_net import NetDisplacement2LMA as JaxNetDisplacement2LMA
+from cardiax.models.lma_net import NetStrainMat2LMA as JaxNetStrainMat2LMA
 from cardiax.models.registration import RegistrationNet as JaxRegistrationNet
+from cardiax.models.strain_net import \
+    NetDisplacement2StrainMat as JaxNetDisplacement2StrainMat
+from cardiax.train.schemes.joint_reg_regression import \
+    JointRegistrationRegressionScheme as JaxJointRegressionScheme
+from cardiax.train.schemes.lma import LMAScheme as JaxLMAScheme
 from cardiax.train.schemes.reg import RegScheme as JaxRegScheme
+from cardiax.train.schemes.strainmat_lma import \
+    StrainMatLMAScheme as JaxStrainMatLMAScheme
+from cardiax.train.schemes.strainmat_pred import \
+    StrainMatPredScheme as JaxStrainMatPredScheme
+from cardiax_torch.models.lma_net import NetDisplacement2LMA, NetStrainMat2LMA
 from cardiax_torch.models.registration import RegistrationNet
+from cardiax_torch.models.strain_net import NetDisplacement2StrainMat
+from cardiax_torch.train.schemes.joint_reg_regression import \
+    JointRegistrationRegressionScheme
+from cardiax_torch.train.schemes.lma import LMAScheme
 from cardiax_torch.train.schemes.reg import RegScheme
+from cardiax_torch.train.schemes.strainmat_lma import StrainMatLMAScheme
+from cardiax_torch.train.schemes.strainmat_pred import StrainMatPredScheme
 from cardiax_torch.data.synthetic import make_dataset
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.train import build_trainer
@@ -83,7 +112,62 @@ PAIRS = {
                                   getattr(jckpt.CheckpointManager, m))
        for m in ("__init__", "save", "latest_epoch", "restore", "wait",
                  "close")},
+    "Scheme.performance": (tengine.Scheme.performance,
+                           jengine.Scheme.performance),
+    "Scheme.make_loader": (tengine.Scheme.make_loader,
+                           jengine.Scheme.make_loader),
+    "LMAScheme.__init__": (LMAScheme.__init__, JaxLMAScheme.__init__),
+    "LMAScheme.forward": (LMAScheme.forward, JaxLMAScheme.forward),
+    "StrainMatPredScheme.__init__": (StrainMatPredScheme.__init__,
+                                     JaxStrainMatPredScheme.__init__),
+    "StrainMatPredScheme.forward": (StrainMatPredScheme.forward,
+                                    JaxStrainMatPredScheme.forward),
+    "StrainMatPredScheme.performance": (StrainMatPredScheme.performance,
+                                        JaxStrainMatPredScheme.performance),
+    "StrainMatLMAScheme.__init__": (StrainMatLMAScheme.__init__,
+                                    JaxStrainMatLMAScheme.__init__),
+    "StrainMatLMAScheme.forward": (StrainMatLMAScheme.forward,
+                                   JaxStrainMatLMAScheme.forward),
+    **{f"JointRegistrationRegressionScheme.{m}": (
+        getattr(JointRegistrationRegressionScheme, m),
+        getattr(JaxJointRegressionScheme, m))
+       for m in ("__init__", "forward", "make_loader", "performance",
+                 "_make_video")},
+    **{f"{cls}.{m}": (getattr(getattr(tds, cls), m),
+                      getattr(getattr(jds, cls), m))
+       for cls in ("SliceGroupedDataset", "LMADataset", "StrainMatDataset")
+       for m in ("__init__", "__getitem__", "get_slice", "get_n_slices",
+                 "get_subject_ids", "get_slice_full_ids")},
+    "datasets.build_datasets": (tds.build_datasets, jds.build_datasets),
+    **{f"{cls}.{m}": (getattr(getattr(tloader, cls), m),
+                      getattr(getattr(jloader, cls), m))
+       for cls in ("Batcher", "SliceBatcher")
+       for m in ("__init__", "set_epoch", "__iter__", "__len__")},
+    "NetStrainMat2LMA.__init__": (NetStrainMat2LMA.__init__,
+                                  JaxNetStrainMat2LMA.__init__),
+    "NetStrainMat2LMA.forward": (NetStrainMat2LMA.forward,
+                                 JaxNetStrainMat2LMA.__call__),
+    "NetDisplacement2LMA.__init__": (NetDisplacement2LMA.__init__,
+                                     JaxNetDisplacement2LMA.__init__),
+    "NetDisplacement2LMA.forward": (NetDisplacement2LMA.forward,
+                                    JaxNetDisplacement2LMA.__call__),
+    "NetDisplacement2StrainMat.__init__": (
+        NetDisplacement2StrainMat.__init__,
+        JaxNetDisplacement2StrainMat.__init__),
+    "NetDisplacement2StrainMat.forward": (
+        NetDisplacement2StrainMat.forward,
+        JaxNetDisplacement2StrainMat.__call__),
+    **{f"losses.{fn}": (getattr(tcalc, fn), getattr(jcalc, fn))
+       for fn in ("mse_loss", "cross_entropy_loss", "get_loss_function")},
+    **{f"losses.{fn}": (getattr(treg_losses, fn), getattr(jreg_losses, fn))
+       for fn in ("lddmm_energy", "registration_reconstruction_loss",
+                  "_sobel_magnitude", "gradient_magnitude_loss")},
+    **{f"metrics.{fn}": (getattr(tmetrics, fn), getattr(jmetrics, fn))
+       for fn in ("tos_sector_error", "classification_metrics",
+                  "binary_auc", "threshold_sweep_f1")},
 }
+
+_FLAX = {"parent", "name"}
 
 # name -> (JAX parameters the port drops, port parameters JAX lacks, reason)
 BY_DESIGN = {
@@ -99,9 +183,9 @@ BY_DESIGN = {
         "keyword-only: where the operands live; JAX's arrays have no "
         "device argument"),
     "models.build_model": (
-        set(), {"n_pairs"},
+        set(), {"n_pairs", "frame_size"},
         "torch modules are built with their shapes; flax infers the pair "
-        "count at the first call"),
+        "count and the frame size at the first call"),
     "models.ModelBundle": (
         {"params"}, {"initialized"},
         "the module holds its parameters; the flag says whether they were "
@@ -117,6 +201,25 @@ BY_DESIGN = {
     "main.run": (
         set(), {"device"},
         "the port's entry points take the device; None means the card"),
+    **{f"{cls}.forward": (
+        {"params", "train"}, set(),
+        "torch modules hold their parameters and their train/eval mode")
+       for cls in ("LMAScheme", "StrainMatPredScheme", "StrainMatLMAScheme",
+                   "JointRegistrationRegressionScheme")},
+    "NetStrainMat2LMA.__init__": (_FLAX, set(), "flax's module plumbing"),
+    "NetDisplacement2LMA.__init__": (
+        _FLAX, {"frame_size"},
+        "flax's module plumbing; torch sizes the first dense at "
+        "construction, from the frames' (H, W), which flax infers at the "
+        "first call"),
+    "NetDisplacement2StrainMat.__init__": (
+        _FLAX | {"tmix"}, set(),
+        "flax's module plumbing; tmix picks one of three TPU lowerings of "
+        "one math (cardiax/models/strain_net.py:30)"),
+    **{f"{cls}.forward": ({"train"}, set(),
+                          "torch modules hold their train/eval mode")
+       for cls in ("NetStrainMat2LMA", "NetDisplacement2LMA",
+                   "NetDisplacement2StrainMat")},
 }
 
 
@@ -242,3 +345,29 @@ def test_engine_refuses_another_device():
                   other)
     with pytest.raises(ValueError, match="engine runs on cpu"):
         eng.test(nets, datasets, cfg["training"], cfg, other)
+
+
+def _registries():
+    """(port registry, JAX registry, port lookup of one name)."""
+    return {
+        "schemes": (ttrain._SCHEME_REGISTRY, jtrain._SCHEME_REGISTRY,
+                    lambda n: ttrain.build_trainer({"scheme": n}, "cpu", {})),
+        "models": (tmodels._MODEL_REGISTRY, jmodels._MODEL_REGISTRY,
+                   lambda n: tmodels.build_model({"type": n})),
+        "criteria": (tcalc._CRITERIA, jcalc._CRITERIA,
+                     tcalc.get_loss_function),
+        "datasets": (tds._DATASET_REGISTRY, jds._DATASET_REGISTRY,
+                     lambda n: tds.build_datasets({"x": {"type": n}}, {})),
+    }
+
+
+@pytest.mark.parametrize("registry", ["schemes", "models", "criteria",
+                                      "datasets"])
+def test_registries_hold_the_jax_names(registry):
+    """JAX's six schemes, seven model type names, four criteria and four
+    datasets; an unknown name raises ``KeyError`` naming the known ones,
+    as in JAX."""
+    port, ref, lookup = _registries()[registry]
+    assert set(port) == set(ref)
+    with pytest.raises(KeyError, match="known: .*" + sorted(ref)[0]):
+        lookup("nope")
