@@ -1,18 +1,21 @@
-"""Fixed-shape numpy batches with a ``sample_mask`` (numpy only).
+"""Fixed-shape batches with a ``sample_mask``.
 
 Copy of ``cardiax/data/loader.py`` (``epoch_permutation``, ``collate``,
-``_pad_batch``, ``Batcher``, ``SliceBatcher``): the final partial batch is
-padded up to ``batch_size`` by repeating its last item, and ``sample_mask``
-marks real (1) and padded (0) items; non-array fields stay Python lists.
-``SliceBatcher`` batches whole slices of pair datasets as (S, P, ...)
-arrays with a ``pair_mask``.
+``_pad_batch``, ``Batcher``, ``SliceBatcher``, ``DeviceBatcher``): the
+final partial batch is padded up to ``batch_size`` by repeating its last
+item, and ``sample_mask`` marks real (1) and padded (0) items; non-array
+fields stay Python lists. ``SliceBatcher`` batches whole slices of pair
+datasets as (S, P, ...) arrays with a ``pair_mask``. ``DeviceBatcher``
+holds the stacked dataset on a torch device and gathers each batch there;
+the others yield numpy.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Sequence
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def epoch_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
@@ -149,4 +152,91 @@ class SliceBatcher:
             sample_mask[:n_real] = 1.0
             batch["pair_mask"] = pair_mask
             batch["sample_mask"] = sample_mask
+            yield batch
+
+
+class DeviceBatcher:
+    """The dataset stacked once onto ``device``; every batch is gathered
+    there by index (``index_select``), so only the epoch's index plan
+    crosses to the card.
+
+    The batches are ``Batcher``'s for the same seed and epoch: the same
+    permutation stream, the final batch padded by repeating its last item,
+    ``sample_mask`` marking the pads. Numeric fields become device tensors;
+    other fields (strings, lists) stay on the host as per-item lists
+    (``_meta``) and come with each batch as lists. Items must not change
+    between epochs, which every dataset of the port guarantees. JAX's
+    ``mesh`` argument is ``device`` here: one card, no sharding.
+    """
+
+    device_resident = True
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, device=None, epoch: int = 0):
+        n = len(dataset)
+        if n == 0:
+            raise ValueError("DeviceBatcher over an empty dataset")
+        host = collate([dataset[i] for i in range(n)])
+        numeric = {k: v for k, v in host.items()
+                   if isinstance(v, np.ndarray) and v.dtype.kind in "fiub"}
+        self._meta = {k: (list(v) if isinstance(v, np.ndarray) else v)
+                      for k, v in host.items() if k not in numeric}
+        self.n = n
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        # the (seed, epoch)-indexed stream of Batcher: hand over a host
+        # loader's seed and epoch counter and the streams stay aligned
+        self.seed = int(seed)
+        self._epoch = int(epoch)
+        self.device = torch.device(device if device is not None else "cpu")
+        self._data = {k: torch.from_numpy(np.ascontiguousarray(v))
+                      .to(self.device) for k, v in numeric.items()}
+
+    def nbytes(self) -> int:
+        return sum(v.numel() * v.element_size() for v in self._data.values())
+
+    def __len__(self) -> int:
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def epoch_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The current epoch's batch schedule as ``(idx, mask)`` of shape
+        (n_steps, batch_size), int64 and float32: the fused epoch's feed.
+        It consumes the epoch exactly as ``__iter__`` does (same
+        permutation, same repeat-last padding, advances the epoch
+        counter)."""
+        n, bs = self.n, self.batch_size
+        order = epoch_permutation(self.seed, self._epoch, n) \
+            if self.shuffle else np.arange(n)
+        self._epoch += 1
+        idx_rows, mask_rows = [], []
+        for start in range(0, n, bs):
+            idx = order[start:start + bs]
+            n_real = len(idx)
+            if n_real < bs:                     # _pad_batch: repeat last item
+                idx = np.concatenate([idx, np.repeat(idx[-1:], bs - n_real)])
+            mask = np.zeros((bs,), np.float32)
+            mask[:n_real] = 1.0
+            idx_rows.append(idx.astype(np.int64))
+            mask_rows.append(mask)
+        return np.stack(idx_rows), np.stack(mask_rows)
+
+    def gather(self, idx: torch.Tensor, mask: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+        """One batch of device tensors: every numeric field at ``idx`` (a
+        device int64 vector) and ``sample_mask``."""
+        out = {k: v.index_select(0, idx) for k, v in self._data.items()}
+        out["sample_mask"] = mask
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        idx_mat, mask_mat = self.epoch_plan()   # advances the epoch counter
+        idx_dev = torch.from_numpy(idx_mat).to(self.device)
+        mask_dev = torch.from_numpy(mask_mat).to(self.device)
+        for i, idx in enumerate(idx_mat):
+            batch: Dict[str, Any] = self.gather(idx_dev[i], mask_dev[i])
+            for k, v in self._meta.items():     # host-side metadata lists
+                batch[k] = [v[int(j)] for j in idx]
             yield batch

@@ -25,7 +25,8 @@ def tos_sector_error(tos_pred: torch.Tensor, tos_true: torch.Tensor,
         err = err * w
         n = sample_mask.sum() * err.shape[-1]
     else:
-        n = torch.tensor(float(err.numel()), device=err.device)
+        # a fill, not a host-to-device copy (capture-safe on the card)
+        n = torch.full((), float(err.numel()), device=err.device)
     return err.sum(), n
 
 

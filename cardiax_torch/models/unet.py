@@ -18,6 +18,15 @@ from cardiax_torch.models.layers import Conv, ConvBlock
 from cardiax_torch.ops.fluid_metric import spectral_resize
 
 
+def _repeat2(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.repeat_interleave(2, dim)`` as a broadcast view, equal in value
+    and gradient: the repeat count never becomes a device tensor whose
+    output size is read back to the host (capture-safe on the card)."""
+    shape = list(x.shape)
+    shape.insert(dim + 1, 2)
+    return x.unsqueeze(dim + 1).expand(shape).flatten(dim, dim + 1)
+
+
 class MomentumUNet(nn.Module):
     def __init__(self, features: int = 16, n_levels: int = 3,
                  half_res: bool = False):
@@ -67,7 +76,7 @@ class MomentumUNet(nn.Module):
         for blk in self.mid:
             x = blk(x)
         for up_conv, dec, skip in zip(self.up_conv, self.dec, reversed(skips)):
-            x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            x = _repeat2(_repeat2(x, 2), 3)
             x = up_conv(x)[:, :, :skip.shape[2], :skip.shape[3]]
             x = dec(torch.cat([x, skip], dim=1))
         m = self.head(x.float())

@@ -17,8 +17,9 @@ and saves (v, m, u) as ``epdiff_pallas._step_fwd`` does;
 ``EPDiffStepSolve`` ties K6/K7 in and saves only (m, u), as
 ``_step_solve_fwd`` does.
 
-``launches``, ``bwd_launches``, ``solve_launches`` and
-``solve_bwd_launches`` count the K2, K3, K6 and K7 launches of this process.
+Each wrapper counts its kernel's launches in ``ops.counters`` (K2
+``epdiff_step_fwd``, K3 ``epdiff_step_bwd``, K6 ``epdiff_step_solve_fwd``,
+K7 ``epdiff_step_solve_bwd``).
 """
 
 from __future__ import annotations
@@ -30,14 +31,10 @@ import torch
 
 from cardiax_torch.kernels.build import (check, check_inputs, load_library,
                                          require_cuda)
+from cardiax_torch.ops import counters
 from cardiax_torch.ops.fluid_metric import solve_mm_operands
 from cardiax_torch.ops.warp_kernels import (_mc_warp_plain, _warp_transpose,
                                             clip_masks, coordinate_vjp)
-
-launches = 0
-bwd_launches = 0
-solve_launches = 0
-solve_bwd_launches = 0
 
 
 def grad_hw(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,7 +124,6 @@ def _epdiff_step_bwd_plain(v, m, u, gm, gu, dt: float, radius: int):
 
 
 def _epdiff_step_cuda(v, m, u, dt: float, radius: int):
-    global launches
     require_cuda("epdiff_step_fwd", v=v, m=m, u=u)
     fn = load_library("epdiff_step").epdiff_step_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
@@ -141,12 +137,11 @@ def _epdiff_step_cuda(v, m, u, dt: float, radius: int):
                  u_out.data_ptr(), n, h, w, float(dt), int(radius),
                  torch.cuda.current_stream().cuda_stream)
     check(err, "epdiff_step_fwd")
-    launches += 1
+    counters.count("epdiff_step_fwd")
     return m_out, u_out
 
 
 def _epdiff_step_bwd_cuda(v, m, u, gm, gu, dt: float, radius: int):
-    global bwd_launches
     require_cuda("epdiff_step_bwd", v=v, m=m, u=u, gm=gm, gu=gu)
     fn = load_library("epdiff_step").epdiff_step_bwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
@@ -160,7 +155,7 @@ def _epdiff_step_bwd_cuda(v, m, u, gm, gu, dt: float, radius: int):
                  n, h, w, float(dt), int(radius),
                  torch.cuda.current_stream().cuda_stream)
     check(err, "epdiff_step_bwd")
-    bwd_launches += 1
+    counters.count("epdiff_step_bwd")
     return g_v, g_m, g_u
 
 
@@ -284,7 +279,6 @@ def _solve_fn(name: str, n_ptrs: int):
 
 
 def _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt: float, radius: int):
-    global solve_launches
     require_cuda("epdiff_step_solve_fwd", m=m, u=u, ty=ty, tx=tx, wgt=wgt)
     _check_solve_side("epdiff_step_solve_fwd", m)
     fn = _solve_fn("epdiff_step_solve_fwd", 8)
@@ -297,13 +291,12 @@ def _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt: float, radius: int):
                  n, h, w, float(dt), int(radius),
                  torch.cuda.current_stream().cuda_stream)
     check(err, "epdiff_step_solve_fwd")
-    solve_launches += 1
+    counters.count("epdiff_step_solve_fwd")
     return m_out, u_out
 
 
 def _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt: float,
                                 radius: int):
-    global solve_bwd_launches
     require_cuda("epdiff_step_solve_bwd", m=m, u=u, ty=ty, tx=tx, wgt=wgt,
                  gm=gm, gu=gu)
     _check_solve_side("epdiff_step_solve_bwd", m)
@@ -317,7 +310,7 @@ def _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt: float,
                  g_m.data_ptr(), g_u.data_ptr(), None, n, h, w, float(dt),
                  int(radius), torch.cuda.current_stream().cuda_stream)
     check(err, "epdiff_step_solve_bwd")
-    solve_bwd_launches += 1
+    counters.count("epdiff_step_solve_bwd")
     return g_m, g_u
 
 

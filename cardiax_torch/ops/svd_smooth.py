@@ -83,7 +83,10 @@ def _safe_orth(y: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     r = gram.shape[-1]
     eye = torch.eye(r, dtype=y.dtype, device=y.device)
     scale = gram.diagonal(dim1=-2, dim2=-1).sum(-1)[..., None, None] / r
-    chol = torch.linalg.cholesky(gram + (eps * scale + 1e-10) * eye)
+    # cholesky_ex: the same factor as cholesky, without its error check,
+    # which reads ``info`` back to the host (a sync, refused inside a CUDA
+    # graph capture); the shift keeps the Gram matrix positive definite
+    chol, _ = torch.linalg.cholesky_ex(gram + (eps * scale + 1e-10) * eye)
     inv_l = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
                                           upper=False)
     return y @ inv_l.transpose(-1, -2)

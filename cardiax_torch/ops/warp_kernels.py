@@ -17,8 +17,8 @@ joint network), else K5 (d/d field, and d/d disp when it is wanted). The
 TPU picks among its full-frame, multi-channel and row-tiled kernels by VMEM
 size; here the same three kernels serve every frame size and channel count.
 
-``launches``, ``bwd_launches`` and ``fused_bwd_launches`` count the K1, K4
-and K5 launches of this process.
+Each wrapper counts its kernel's launches in ``ops.counters`` (K1
+``mc_warp_fwd``, K4 ``mc_warp_disp_bwd``, K5 ``mc_warp_fused_bwd``).
 """
 
 from __future__ import annotations
@@ -29,11 +29,8 @@ import torch
 
 from cardiax_torch.kernels.build import (check, check_inputs, load_library,
                                          require_cuda)
+from cardiax_torch.ops import counters
 from cardiax_torch.ops.warp import gather_taps, sample_coords
-
-launches = 0
-bwd_launches = 0
-fused_bwd_launches = 0
 
 
 def _mc_warp_plain(field: torch.Tensor, disp: torch.Tensor,
@@ -133,7 +130,6 @@ def _mc_warp_fused_bwd_plain(field: torch.Tensor, disp: torch.Tensor,
 
 def _mc_warp_cuda(field: torch.Tensor, disp: torch.Tensor,
                   radius: int) -> torch.Tensor:
-    global launches
     require_cuda("mc_warp_fwd", field=field, disp=disp)
     fn = load_library("mc_warp").mc_warp_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -144,13 +140,12 @@ def _mc_warp_cuda(field: torch.Tensor, disp: torch.Tensor,
         err = fn(field.data_ptr(), disp.data_ptr(), out.data_ptr(), n, c, h, w,
                  int(radius), torch.cuda.current_stream().cuda_stream)
     check(err, "mc_warp_fwd")
-    launches += 1
+    counters.count("mc_warp_fwd")
     return out
 
 
 def _mc_warp_disp_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
                            g: torch.Tensor, radius: int) -> torch.Tensor:
-    global bwd_launches
     require_cuda("mc_warp_disp_bwd", field=field, disp=disp, g=g)
     fn = load_library("mc_warp").mc_warp_disp_bwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -162,7 +157,7 @@ def _mc_warp_disp_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
                  gdisp.data_ptr(), n, c, h, w, int(radius),
                  torch.cuda.current_stream().cuda_stream)
     check(err, "mc_warp_disp_bwd")
-    bwd_launches += 1
+    counters.count("mc_warp_disp_bwd")
     return gdisp
 
 
@@ -183,7 +178,6 @@ def mc_warp_disp_bwd(field: torch.Tensor, disp: torch.Tensor,
 def _mc_warp_fused_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
                             g: torch.Tensor, radius: int,
                             with_disp: bool = True):
-    global fused_bwd_launches
     require_cuda("mc_warp_fused_bwd", field=field, disp=disp, g=g)
     fn = load_library("mc_warp").mc_warp_fused_bwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -198,7 +192,7 @@ def _mc_warp_fused_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
                  band.data_ptr(), n, c, h, w, int(radius),
                  torch.cuda.current_stream().cuda_stream)
     check(err, "mc_warp_fused_bwd")
-    fused_bwd_launches += 1
+    counters.count("mc_warp_fused_bwd")
     return gfield, gdisp
 
 

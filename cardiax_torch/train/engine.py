@@ -9,24 +9,29 @@ contract and the TOS metrics) and ``TrainerEngine``:
   an optimizer config is frozen;
 * ``train_step``: forward, loss, backward, then every optimizer and its
   schedule steps (no gradient clipping, as in JAX);
-* ``train``: the synchronous epoch loop of the JAX engine (epoch-indexed
-  shuffle, padded final batches with ``sample_mask``, validation every
+* ``train``: the epoch loop of the JAX engine (epoch-indexed shuffle,
+  padded final batches with ``sample_mask``, validation every
   ``others.valid_period`` epochs, early stopping, best weights restored,
-  the non-finite spot check and the banded-warp saturation warning);
-* ``eval_step`` / ``test``: values and per-sample predictions.
+  the non-finite check and the banded-warp saturation warning) with its
+  dispatch modes: the device-resident dataset
+  (``training.device_data_cache``), fused epochs with the combined
+  train+val pass (``epoch_fuse``; CUDA graphs of the train and eval steps
+  on the card, ``train.graphs``), epoch pipelining (``epoch_pipeline``),
+  the profiler window (``others.profile_dir``) and host-phase rows
+  (``training.host_profile``), each with JAX's keys and ``auto`` policy;
+* ``eval_step`` / ``test``: values and per-sample predictions
+  (``training.eval_pipeline``).
 
 ``train`` also takes a checkpoint of the whole training state after each
 epoch's early-stop update (``saving.save_checkpoint``, ``io.checkpoints``),
 resumes from the latest one exactly (``training.resume``), and draws the
 periodic figure of the first val batch (``others.wandb_visualize_interval``,
-``Scheme.visualize``). JAX's device-resident cache, fused epochs and epoch
-pipelining give the same values as its synchronous loop; here
-``auto``/false selects the synchronous loop and ``true`` raises (ROADMAP
-A10). The profiler trace raises (ROADMAP A9).
+``Scheme.visualize``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 import warnings
@@ -36,14 +41,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from cardiax_torch.data.loader import Batcher
+from cardiax_torch.data.loader import Batcher, DeviceBatcher
+from cardiax_torch.data.prefetch import PrefetchBatcher
 from cardiax_torch.device import resolve_device
 from cardiax_torch.io.checkpoints import CheckpointManager
 from cardiax_torch.io.metrics import MetricsTracker
+from cardiax_torch.io.profiling import STEP_SPAN, print_trace_summary
 from cardiax_torch.losses.calculator import LossCalculator
 from cardiax_torch.losses.metrics import classification_metrics
 from cardiax_torch.models import init_weights
-from cardiax_torch.train.optim import build_optimizer
+from cardiax_torch.train.graphs import (EpochRunner, StepGraph, read_values,
+                                        stack_values)
+from cardiax_torch.train.optim import (build_optimizer, graph_capturable,
+                                       load_optimizer_state, optimizer_state)
 
 _FALSE = ("false", "0", "off", "none", "no")
 _TRUE = ("true", "1", "yes", "on")
@@ -129,19 +139,20 @@ class Scheme:
         return perf
 
 
-def _sync_loop_only(cfg: Dict[str, Any]) -> None:
-    """The dispatch options of the JAX engine: ``auto`` and false mean the
-    synchronous loop (JAX pins them as giving its values), true raises."""
-    for key in ("device_data_cache", "epoch_fuse", "epoch_pipeline"):
-        raw = cfg.get(key, "auto")
-        mode = "auto" if raw is None else str(raw).lower()
-        if mode in _TRUE:
-            raise NotImplementedError(
-                f"training.{key}={raw!r}: not ported yet (ROADMAP A10); "
-                f"'auto' and false run the synchronous loop")
-        if mode != "auto" and mode not in _FALSE:
-            raise ValueError(f"training.{key}={raw!r} is not a recognized "
-                             f"value; use true/false/auto")
+def _tristate(cfg: Dict[str, Any], key: str, none_means: str
+              ) -> Tuple[bool, bool]:
+    """(want, force) of a true/false/auto key, as JAX reads it; another
+    value raises ``ValueError`` (a typo must not silently mean auto)."""
+    raw = cfg.get(key, "auto")
+    mode = none_means if raw is None else str(raw).lower()
+    if mode in _FALSE:
+        return False, False
+    if mode in _TRUE:
+        return True, True
+    if mode == "auto":
+        return True, False
+    raise ValueError(f"training.{key}={raw!r} is not a recognized value; "
+                     f"use true/false/auto")
 
 
 def _bundles(models: Dict[str, Any]) -> Dict[str, Any]:
@@ -168,6 +179,9 @@ class TrainerEngine:
         self.optimizers: Dict[str, Tuple[torch.optim.Optimizer, Any]] = {}
         self._warned_disp_band = False
         self._warned_visualization = False
+        # the fused epochs of this train() call, by (loader, for_eval)
+        self._runners: Dict[Tuple[int, bool], EpochRunner] = {}
+        self.host_profile_rows: List[Dict[str, float]] = []
         # the banded warp clamps |disp| at final_warp_radius - 1 px; warn
         # when training displacements approach it
         radii = [int(mc.get("final_warp_radius", 12))
@@ -215,17 +229,23 @@ class TrainerEngine:
                     module.parameters(), conf, steps_per_epoch)
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The numeric numpy fields of a host batch as device tensors."""
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()
-                if isinstance(v, np.ndarray) and v.dtype.kind in "fiub"}
+        """The numeric fields of a batch (numpy arrays, or tensors of a
+        device-resident loader) as tensors on the engine's device."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor):
+                out[k] = v.to(self.device)
+            elif isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
+                out[k] = torch.from_numpy(v).to(self.device)
+        return out
 
     # ---- steps ------------------------------------------------------------ #
     def _loss(self, arrays: Dict[str, torch.Tensor]):
         preds, targets = self.scheme.forward(self.modules, arrays)
         total, values = self.loss_calc(preds, targets)
         if "displacement" in preds:
-            # band-saturation guard of the banded warp: max |u_inv|
+            # band-saturation guard of the banded warp: max |u_inv|, kept
+            # on the device (read with the epoch's other values)
             values["max_abs_displacement"] = preds["displacement"].abs().max()
         return total, values, preds
 
@@ -240,14 +260,27 @@ class TrainerEngine:
         total.backward()
         return {k: v.detach() for k, v in values.items()}
 
+    def _update(self, arrays: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Backward and every optimizer's step: the device work of a train
+        step, which a CUDA graph holds (``train.graphs``)."""
+        values = self.backward(arrays)
+        for opt, _ in self.optimizers.values():
+            opt.step()
+        return values
+
+    def _schedules_step(self) -> None:
+        """Every schedule's step: the next step's learning rates (written
+        into the optimizers' lr tensors on the card)."""
+        for _, schedule in self.optimizers.values():
+            schedule.step()
+
     def train_step(self, arrays: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         """One optimisation step on one batch; returns its loss values
         (before the update), as the JAX train step does."""
-        values = self.backward(arrays)
-        for opt, schedule in self.optimizers.values():
-            opt.step()
-            schedule.step()
+        values = self._update(arrays)
+        self._schedules_step()
         return values
 
     def eval_step(self, arrays: Dict[str, torch.Tensor]
@@ -258,6 +291,72 @@ class TrainerEngine:
         with torch.inference_mode():
             _, values, preds = self._loss(arrays)
         return values, preds
+
+    # ---- fused epochs ------------------------------------------------------ #
+    def _build_epoch_fns(self, loader, for_eval: bool = False) -> EpochRunner:
+        """The fused epoch of a device-resident ``loader``: the train step
+        (or the eval step's values) over the rows of its epoch plan, a CUDA
+        graph on the card (``train.graphs.EpochRunner``). One runner per
+        loader and kind for this ``train`` call."""
+        key = (id(loader), for_eval)
+        if key not in self._runners:
+            if for_eval:
+                self._runners[key] = EpochRunner(
+                    loader, lambda arrays: self.eval_step(arrays)[0])
+            else:
+                self._runners[key] = EpochRunner(
+                    loader, self._update, after_step=self._schedules_step)
+        return self._runners[key]
+
+    def _build_epoch_trainval_fn(self, train_loader, val_loader):
+        """Train epoch then val epoch in one pass, ``(idx, mask, vidx,
+        vmask) -> [(values, keys), (val values, keys)]``: the val steps
+        read the epoch's final parameters, and the caller reads both in one
+        copy (JAX's combined train+val program)."""
+        train_fn = self._build_epoch_fns(train_loader)
+        val_fn = self._build_epoch_fns(val_loader, for_eval=True)
+
+        def epoch_train_val(idx_mat, mask_mat, vidx_mat, vmask_mat):
+            return [(train_fn(idx_mat, mask_mat), train_fn.keys),
+                    (val_fn(vidx_mat, vmask_mat), val_fn.keys)]
+        return epoch_train_val
+
+    def _maybe_device_cache(self, loader, cfg: Dict[str, Any], tag: str):
+        """A plain padded ``Batcher`` swapped for a ``DeviceBatcher`` (the
+        stacked dataset on the engine's device, batches gathered there by
+        index) as ``training.device_data_cache`` says: "auto" (default)
+        when the stacked items fit ``device_data_cache_budget_mb`` (512),
+        true always, false never. The loader's seed and epoch are handed
+        over, so the shuffle stream is unchanged."""
+        want, force = _tristate(cfg, "device_data_cache", "auto")
+        if not want:
+            return loader
+        if not isinstance(loader, Batcher) or loader.drop_last \
+                or not loader.pad_final or len(loader.dataset) == 0:
+            if force:
+                warnings.warn(
+                    f"device_data_cache({tag}): requested but this loader "
+                    f"({type(loader).__name__}) is not cacheable — only the "
+                    f"plain Batcher path is; using the host loader",
+                    RuntimeWarning)
+            return loader
+        item0 = loader.dataset[0]
+        est = len(loader.dataset) * sum(
+            v.nbytes for v in item0.values() if isinstance(v, np.ndarray))
+        budget = float(cfg.get("device_data_cache_budget_mb", 512)) * 2 ** 20
+        if not force and est > budget:
+            return loader
+        try:
+            cached = DeviceBatcher(loader.dataset, loader.batch_size,
+                                   shuffle=loader.shuffle, seed=loader.seed,
+                                   device=self.device, epoch=loader._epoch)
+        except (ValueError, RuntimeError) as e:   # ragged items, OOM
+            warnings.warn(f"device_data_cache({tag}): falling back to the "
+                          f"host Batcher: {e}", RuntimeWarning)
+            return loader
+        print(f"device_data_cache: {tag} dataset resident on device "
+              f"({est / 2**20:.0f} MB, {len(loader.dataset)} items)")
+        return cached
 
     # ---- training loop ------------------------------------------------------ #
     def _snapshot(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -279,6 +378,21 @@ class TrainerEngine:
             raise ValueError(f"device={device!r}: this engine runs on "
                              f"{self.device}; build it with that device")
 
+    def _epoch_means(self, stacked: Dict[str, np.ndarray], split: str
+                     ) -> Dict[str, float]:
+        """One epoch's per-step values -> its metrics: the mean over steps,
+        the max for ``max_abs_displacement`` (each step's value through the
+        banded-warp saturation check)."""
+        out = {}
+        for k, v in stacked.items():
+            if k == "max_abs_displacement":
+                for fv in v:
+                    self._check_displacement_band(float(fv))
+                out[f"{self.metric_prefix}{split}/{k}"] = float(v.max())
+            else:
+                out[f"{self.metric_prefix}{split}/{k}"] = float(v.mean())
+        return out
+
     def train(self, models: Dict[str, Any], datasets: Dict[str, Any],
               trainer_config: Dict[str, Any] | None = None,
               full_config: Dict[str, Any] | None = None, device=None,
@@ -287,10 +401,26 @@ class TrainerEngine:
               use_wandb: bool = False, enable_wandb_upload: bool = True,
               tracker: Optional[MetricsTracker] = None,
               ) -> Tuple[Dict[str, Any], MetricsTracker]:
-        """The synchronous epoch loop; returns (exp_dict, tracker).
+        """The epoch loop of the JAX engine; returns (exp_dict, tracker).
         ``tensorboard_log_dir`` and ``enable_wandb_upload`` are accepted as
         JAX's and unused there too (the tracker logs to
-        ``saving.saving_dir``)."""
+        ``saving.saving_dir``).
+
+        Dispatch, as JAX's keys and ``auto`` policy say: the datasets go
+        to the device when they fit (``device_data_cache``); a resident
+        train loader runs fused epochs (``epoch_fuse``: the captured train
+        step replayed over the epoch plan on the card, the same step
+        eagerly on the CPU), validation fuses with it and runs in the same
+        pass, and without checkpoints epoch k+1 is enqueued before epoch
+        k's metrics are read (``epoch_pipeline``). The step loop, where it
+        runs on the card, takes a host loader's batches through a
+        ``PrefetchBatcher`` (JAX's engine has one and never calls it; the
+        batches are the same). ``others.profile_dir``
+        traces steps 2..``profile_steps`` + 1 of the step loop instead, and
+        ``training.host_profile`` records each epoch's host phases on
+        ``host_profile_rows``. ``last_fuse_engaged``,
+        ``last_fuse_trainval`` and ``last_pipeline_engaged`` say what ran.
+        """
         self._check_device(device)
         cfg = trainer_config or self.trainer_config
         full = full_config or self.full_config
@@ -305,15 +435,6 @@ class TrainerEngine:
         valid_period = max(1, int(others.get("valid_period", 1)))
         spot_every = int(cfg.get("metric_spot_check_steps", 50))
         log_wall = bool(cfg.get("log_epoch_walltime", False))
-        _sync_loop_only(cfg)
-        if others.get("profile_dir"):
-            raise NotImplementedError(
-                "others.profile_dir: the profiler trace and its table "
-                "(cardiax/io/profiling.py) are not ported yet (ROADMAP A9)")
-        if cfg.get("host_profile", False):
-            raise NotImplementedError(
-                "training.host_profile: host-phase attribution of the fused "
-                "epoch loop is not ported yet (ROADMAP A10)")
 
         train_ds = datasets["train"]
         if len(train_ds) == 0:
@@ -325,21 +446,26 @@ class TrainerEngine:
                                                shuffle=True, seed=seed)
         val_loader = self.scheme.make_loader(val_ds, batch_size, shuffle=False) \
             if val_ds is not None and len(val_ds) > 0 else None
+        train_loader = self._maybe_device_cache(train_loader, cfg, "train")
+        if val_loader is not None:
+            val_loader = self._maybe_device_cache(val_loader, cfg, "val")
         if tracker is None:
             tracker = MetricsTracker(
                 use_wandb=use_wandb, use_tensorboard=use_tensorboard,
                 log_dir=saving.get("saving_dir"),
                 run_name=full.get("info", {}).get("experiment_name", "cardiax"))
         self.setup(models, steps_per_epoch=len(train_loader), seed=seed)
+        self._runners = {}
 
         best_val = float("inf")
         best_state = self._snapshot()
         best_epoch = -1
         best_epoch_metrics: Dict[str, float] = {}
         epochs_without_improvement = 0
-        # checkpoints of the whole training state; resume restores all of it,
-        # so a resumed run is step for step the uninterrupted run (the
-        # shuffle is a pure function of (seed, epoch))
+        # checkpoints of the whole training state; resume restores all of it
+        # (before any graph is captured), so a resumed run is step for step
+        # the uninterrupted run (the shuffle is a pure function of (seed,
+        # epoch))
         ckpt = None
         start_epoch = 0
         best_metrics_path = None
@@ -367,53 +493,226 @@ class TrainerEngine:
         vis_interval = others.get("wandb_visualize_interval", 0)
         vis_every = max(1, int(float(vis_interval) * epochs)) \
             if vis_interval and saving.get("saving_dir") else 0
+        # the profiler window: steps 2..profile_steps + 1 of the step loop
+        profile_dir = others.get("profile_dir")
+        profile_steps = int(others.get("profile_steps", 5))
+        profiler = None
+        profiled = False
+        host_profile = bool(cfg.get("host_profile", False))
+        host_rows: List[Dict[str, float]] = []
+        self.host_profile_rows = host_rows
+
+        # ---- fused epochs (training.epoch_fuse, JAX's policy): fuse when
+        # the train loader is resident and no profiler window is asked for;
+        # val fuses only when train did (or under an explicit true), so a
+        # run stays in one numerics regime ----
+        fuse_want, fuse_force = _tristate(cfg, "epoch_fuse", "false")
+        fuse_train = fuse_val = fuse_trainval = None
+        no_graph = None
+        if fuse_want and not profile_dir:
+            if getattr(train_loader, "device_resident", False):
+                no_graph = self._uncapturable()
+                if no_graph is None:
+                    fuse_train = self._build_epoch_fns(train_loader)
+                elif fuse_force:
+                    raise NotImplementedError(
+                        f"training.epoch_fuse=true: {no_graph}")
+            elif fuse_force:
+                warnings.warn(
+                    "epoch_fuse: requested but the train loader is not "
+                    "device-resident (device_data_cache off or not "
+                    "cacheable); using the step loop", RuntimeWarning)
+            if (fuse_train is not None or fuse_force) \
+                    and val_loader is not None \
+                    and getattr(val_loader, "device_resident", False):
+                fuse_val = self._build_epoch_fns(val_loader, for_eval=True)
+        if fuse_train is not None and fuse_val is not None:
+            fuse_trainval = self._build_epoch_trainval_fn(train_loader,
+                                                          val_loader)
+        elif fuse_want and profile_dir and fuse_force:
+            warnings.warn("epoch_fuse: disabled while others.profile_dir is "
+                          "set (the profiler window is step-granular)",
+                          RuntimeWarning)
+        self.last_fuse_engaged = (fuse_train is not None,
+                                  fuse_val is not None)
+        self.last_fuse_trainval = fuse_trainval is not None
+
+        # ---- epoch pipelining (training.epoch_pipeline): enqueue epoch k+1
+        # before reading epoch k's metrics. The same steps run on the same
+        # inputs in the same order; epoch k's parameters are cloned on the
+        # device before epoch k+1 updates them in place. Needs the fused
+        # path, no checkpoints (they need epoch k's optimizer state) and,
+        # with a val loader, the combined train+val pass. An early stop at
+        # epoch k discards the one speculative epoch k+1; the best
+        # parameters and metrics are unaffected. ----
+        pipe_want, pipe_force = _tristate(cfg, "epoch_pipeline", "false")
+        pipeline_on = (pipe_want and fuse_train is not None
+                       and ckpt is None
+                       and (val_loader is None or fuse_trainval is not None))
+        if pipe_force and not pipeline_on:
+            warnings.warn(
+                "epoch_pipeline: requested but cannot engage (needs the "
+                "fused-epoch path, save_checkpoint off, and the combined "
+                "train+val dispatch when validating); using the "
+                "synchronous loop", RuntimeWarning)
+        self.last_pipeline_engaged = pipeline_on
+        if fuse_train is not None:
+            bits = ["fused (" + ("CUDA graphs of the train and eval steps"
+                                 if self.device.type == "cuda"
+                                 else "the steps eagerly") + ")"]
+            if fuse_trainval is not None:
+                bits.append("combined train+val")
+            if pipeline_on:
+                bits.append("pipelined")
+            print(f"epoch loop: {' + '.join(bits)}")
+        elif no_graph is not None:
+            print(f"epoch loop: step loop ({no_graph})")
 
         history: List[Dict[str, float]] = []
         prefix = self.metric_prefix
         global_step = 0
+        pipe_q: List[Dict[str, Any]] = []
+        last_wall_done_t: Optional[float] = None
+        epoch_iter: List[Optional[int]] = list(range(start_epoch, epochs))
+        if pipeline_on:
+            epoch_iter.append(None)    # flush: process the last in flight
         t_start = time.perf_counter()
-        for epoch in range(start_epoch, epochs):
-            t_epoch = time.perf_counter()
-            # epoch-indexed shuffle (loader.epoch_permutation)
-            train_loader.set_epoch(epoch)
-            step_values: List[Dict[str, torch.Tensor]] = []
-            for batch in train_loader:
-                values = self.train_step(self.to_device(batch))
-                step_values.append(values)
-                global_step += 1
-                if spot_every and global_step % spot_every == 0:
-                    fv = float(values["total_loss"])
-                    if not np.isfinite(fv):
-                        raise FloatingPointError(
-                            f"non-finite total_loss {fv} at epoch {epoch} "
-                            f"step {global_step} (spot check)")
-                    if "max_abs_displacement" in values:
-                        self._check_displacement_band(
-                            float(values["max_abs_displacement"]))
-            epoch_metrics: Dict[str, float] = {}
-            for k, v in _stack(step_values).items():
-                if k == "max_abs_displacement":     # epoch max, not mean
-                    for fv in v:
-                        self._check_displacement_band(float(fv))
-                    epoch_metrics[f"{prefix}train/{k}"] = float(v.max())
-                else:
-                    epoch_metrics[f"{prefix}train/{k}"] = float(v.mean())
+        for epoch in epoch_iter:
+            rec: Optional[Dict[str, Any]] = None
+            if epoch is None:
+                if not pipe_q:
+                    break
+                rec = pipe_q.pop(0)
+            else:
+                t_epoch = time.perf_counter()
+                ht = {} if host_profile else None
+                # epoch-indexed shuffle (loader.epoch_permutation)
+                train_loader.set_epoch(epoch)
+                run_val_now = val_loader is not None and (
+                    epoch % valid_period == 0 or epoch == epochs - 1)
+                if fuse_train is not None:
+                    t0 = time.perf_counter()
+                    idx_mat, mask_mat = train_loader.epoch_plan()
+                    if ht is not None:
+                        ht["plan"] = time.perf_counter() - t0
+                        t0 = time.perf_counter()
+                    if fuse_trainval is not None and run_val_now:
+                        vidx_mat, vmask_mat = val_loader.epoch_plan()
+                        parts = fuse_trainval(idx_mat, mask_mat, vidx_mat,
+                                              vmask_mat)
+                    else:
+                        parts = [(fuse_train(idx_mat, mask_mat),
+                                  fuse_train.keys)]
+                    flat, layout = stack_values(parts)
+                    if ht is not None:
+                        ht["dispatch"] = time.perf_counter() - t0
+                    rec = {"epoch": epoch, "t_epoch": t_epoch, "ht": ht,
+                           "run_val_now": run_val_now,
+                           "n_batches": int(idx_mat.shape[0]),
+                           "flat": flat, "layout": layout}
+                    global_step += rec["n_batches"]
+                    if pipeline_on:
+                        # epoch k's parameters, before epoch k+1's steps
+                        # update them in place: the best-params copy if
+                        # this epoch turns out best
+                        rec["snap"] = self._snapshot()
+                        pipe_q.append(rec)
+                        if len(pipe_q) < 2:
+                            continue       # fill the pipeline (one in flight)
+                        rec = pipe_q.pop(0)
+            # ---- one epoch's results: the fused record, else the loop ----
+            pending_val = None    # val values from the combined pass
+            if rec is not None:
+                proc_epoch = int(rec["epoch"])
+                t_epoch, ht = rec["t_epoch"], rec["ht"]
+                run_val_now = rec["run_val_now"]
+                t0 = time.perf_counter()
+                synced = read_values(rec["flat"], rec["layout"])
+                if ht is not None:
+                    ht["sync"] = time.perf_counter() - t0
+                train_values = synced[0]
+                if len(synced) > 1:
+                    pending_val = synced[1]
+                if spot_every and not np.isfinite(
+                        train_values["total_loss"][-1]):
+                    raise FloatingPointError(
+                        f"non-finite total_loss at epoch {proc_epoch} "
+                        f"(fused-epoch check)")
+            else:
+                proc_epoch = epoch
+                step_values: List[Dict[str, torch.Tensor]] = []
+                for batch in self._feed(train_loader):
+                    if profile_dir and global_step == 1 and not profiled:
+                        # the first step (and its set-up) stays out of the
+                        # window
+                        if step_values:
+                            float(step_values[-1]["total_loss"])
+                        profiler = _start_profiler(self.device)
+                        profiled = True
+                    with (torch.profiler.record_function(STEP_SPAN)
+                          if profiler is not None
+                          else contextlib.nullcontext()):
+                        values = self.train_step(self.to_device(batch))
+                    step_values.append(values)
+                    global_step += 1
+                    if spot_every and global_step % spot_every == 0:
+                        fv = float(values["total_loss"])
+                        if not np.isfinite(fv):
+                            raise FloatingPointError(
+                                f"non-finite total_loss {fv} at epoch "
+                                f"{proc_epoch} step {global_step} (spot "
+                                f"check)")
+                        if "max_abs_displacement" in values:
+                            self._check_displacement_band(
+                                float(values["max_abs_displacement"]))
+                    if profiler is not None \
+                            and global_step > profile_steps:
+                        float(values["total_loss"])
+                        _stop_profiler(profiler, profile_dir)
+                        profiler = None
+                        print_trace_summary(profile_dir)
+                train_values = _stack(step_values)
+            epoch_metrics = self._epoch_means(train_values, "train")
 
             epoch_total_val = None
-            if val_loader is not None and (epoch % valid_period == 0
-                                           or epoch == epochs - 1):
-                val_values = [self.eval_step(self.to_device(b))[0]
-                              for b in val_loader]
-                for k, v in _stack(val_values).items():
+            if run_val_now:
+                t_val = time.perf_counter()
+                if pending_val is not None:
+                    val_values = pending_val
+                elif fuse_val is not None:
+                    vidx_mat, vmask_mat = val_loader.epoch_plan()
+                    val_values = read_values(*stack_values(
+                        [(fuse_val(vidx_mat, vmask_mat), fuse_val.keys)]))[0]
+                else:
+                    val_values = _stack([self.eval_step(self.to_device(b))[0]
+                                         for b in self._feed(val_loader)])
+                for k, v in val_values.items():
                     epoch_metrics[f"{prefix}val/{k}"] = float(v.mean())
                 epoch_total_val = epoch_metrics.get(f"{prefix}val/total_loss")
+                if ht is not None:
+                    ht["val"] = time.perf_counter() - t_val
             if log_wall:
-                epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
-                    time.perf_counter() - t_epoch
-            tracker.log(epoch_metrics, step=epoch)
+                # under pipelining an epoch's dispatch-to-processed span
+                # overlaps the next one's: log the cadence instead
+                now = time.perf_counter()
+                if pipeline_on and last_wall_done_t is not None:
+                    epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
+                        now - last_wall_done_t
+                else:
+                    epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
+                        now - t_epoch
+                last_wall_done_t = now
+            t_track = time.perf_counter()
+            tracker.log(epoch_metrics, step=proc_epoch)
             history.append(dict(epoch_metrics))
-            if vis_every and epoch % vis_every == 0 and val_loader is not None:
-                self._visualize(val_loader, saving, epoch)
+            if ht is not None:
+                ht["track"] = time.perf_counter() - t_track
+            if vis_every and proc_epoch % vis_every == 0 \
+                    and val_loader is not None:
+                # under pipelining the modules hold the next epoch's
+                # parameters; the figure is of this epoch's
+                self._visualize(val_loader, saving, proc_epoch,
+                                rec.get("snap") if rec is not None else None)
 
             # early stopping on total val loss, or on early_stop_metric
             if early_stop_metric is not None:
@@ -426,23 +725,28 @@ class TrainerEngine:
                 monitor = epoch_metrics.get(f"{prefix}train/total_loss",
                                             float("inf"))
             stop = False
+            t_best = time.perf_counter()
             if monitor is not None:
                 if monitor < best_val:
                     best_val = monitor
-                    best_state = self._snapshot()
-                    best_epoch = epoch
+                    best_state = rec["snap"] if rec is not None \
+                        and "snap" in rec else self._snapshot()
+                    best_epoch = proc_epoch
                     best_epoch_metrics = dict(epoch_metrics)
                     epochs_without_improvement = 0
                 else:
                     epochs_without_improvement += 1
                     stop = epochs_without_improvement > tolerance
+            if ht is not None:
+                ht["beststop"] = time.perf_counter() - t_best
+                t_ckpt = time.perf_counter()
             # after the early-stop update, so the saved counters hold this
             # epoch's decision
             if ckpt is not None:
                 saved = ckpt.save(
-                    epoch, self._snapshot(), self._optimizer_states(),
+                    proc_epoch, self._snapshot(), self._optimizer_states(),
                     best_params=best_state,
-                    extra={"epoch": epoch, "best_val": float(best_val),
+                    extra={"epoch": proc_epoch, "best_val": float(best_val),
                            "best_epoch": best_epoch,
                            "epochs_without_improvement":
                                epochs_without_improvement,
@@ -450,9 +754,19 @@ class TrainerEngine:
                 if saved:
                     best_metrics_path.write_text(
                         json.dumps(best_epoch_metrics))
+            if ht is not None:
+                ht["ckpt"] = time.perf_counter() - t_ckpt
+                # `total` spans dispatch to processed; under pipelining
+                # consecutive totals overlap, and the cadence is the
+                # difference of consecutive `t_done` stamps
+                ht["total"] = time.perf_counter() - t_epoch
+                ht["t_done"] = time.perf_counter()
+                host_rows.append(ht)
             if stop:
                 break
 
+        if profiler is not None:
+            _stop_profiler(profiler, profile_dir)
         if ckpt is not None:
             ckpt.close()
         if best_epoch_metrics:
@@ -472,9 +786,33 @@ class TrainerEngine:
             if k.endswith("total_loss") or "/" in k}
         return exp_dict, tracker
 
+    def _feed(self, loader):
+        """The step loop's batches: a host loader's cross to the card a
+        batch or two ahead of the step that takes them (``PrefetchBatcher``);
+        a resident loader's, and every loader's on the CPU, as they come.
+        The same batches either way."""
+        if self.device.type == "cuda" \
+                and not getattr(loader, "device_resident", False):
+            return PrefetchBatcher(loader, self.device)
+        return loader
+
+    def _uncapturable(self) -> Optional[str]:
+        """Why the train step cannot be a CUDA graph on this engine's
+        device (an optimizer that reads its learning rate from the host:
+        SGD), or None. Decided before anything is captured; the CPU runs
+        the fused path eagerly and needs nothing."""
+        if self.device.type != "cuda":
+            return None
+        bad = sorted(name for name, (opt, _) in self.optimizers.items()
+                     if not graph_capturable(opt))
+        if bad:
+            return (f"the optimizers of {bad} are not capturable in a CUDA "
+                    f"graph (only Adam and AdamW are)")
+        return None
+
     # ---- checkpoint state and figures ------------------------------------ #
     def _optimizer_states(self) -> Dict[str, Dict[str, Any]]:
-        return {name: {"optimizer": opt.state_dict(),
+        return {name: {"optimizer": optimizer_state(opt),
                        "schedule": schedule.state_dict()}
                 for name, (opt, schedule) in self.optimizers.items()}
 
@@ -491,26 +829,34 @@ class TrainerEngine:
         for name, module in self.modules.items():
             module.load_state_dict(state["params"][name])
         for name, (opt, schedule) in self.optimizers.items():
-            opt.load_state_dict(state["opt_states"][name]["optimizer"])
+            load_optimizer_state(opt, state["opt_states"][name]["optimizer"])
             schedule.load_state_dict(state["opt_states"][name]["schedule"])
         extra = state["extra"]
         torch.set_rng_state(extra["rng_cpu"])
         if self.device.type == "cuda" and "rng_cuda" in extra:
             torch.cuda.set_rng_state(extra["rng_cuda"], self.device)
 
-    def _visualize(self, val_loader, saving: Dict[str, Any],
-                   epoch: int) -> None:
+    def _visualize(self, val_loader, saving: Dict[str, Any], epoch: int,
+                   params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+                   ) -> None:
         """The scheme's figure of the first val batch into
-        ``saving_dir/figures/epoch_{epoch:04d}.png``. A figure must never
-        stop training, nor fail silently: the first failure warns, later
-        ones are suppressed (as in JAX)."""
+        ``saving_dir/figures/epoch_{epoch:04d}.png``, with ``params`` (a
+        ``_snapshot``) loaded for it where given. A figure must never stop
+        training, nor fail silently: the first failure warns, later ones are
+        suppressed (as in JAX)."""
+        current = None
         try:
+            if params is not None:
+                current = self._snapshot()
+                self._load_params(params)
             vb = next(iter(val_loader))
             _, vpred = self.eval_step(self.to_device(vb))
             vpred_np = {k: v.float().cpu().numpy() for k, v in vpred.items()}
+            vb_np = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                         else v) for k, v in vb.items()}
             fig_dir = Path(saving.get("saving_dir", ".")) / "figures"
             fig_dir.mkdir(parents=True, exist_ok=True)
-            self.scheme.visualize(vb, vpred_np,
+            self.scheme.visualize(vb_np, vpred_np,
                                   fig_dir / f"epoch_{epoch:04d}.png")
         except Exception as e:
             if not self._warned_visualization:
@@ -519,6 +865,16 @@ class TrainerEngine:
                     f"periodic visualization failed (epoch {epoch}): "
                     f"{type(e).__name__}: {e} — suppressing further "
                     f"visualization errors this run")
+        finally:
+            if current is not None:
+                self._load_params(current)
+
+    def _load_params(self, params: Dict[str, Dict[str, torch.Tensor]]
+                     ) -> None:
+        """Copy a ``_snapshot`` into the modules in place (the tensors a
+        captured graph reads stay the same)."""
+        for name, module in self.modules.items():
+            module.load_state_dict(params[name])
 
     # ---- inference ----------------------------------------------------------- #
     def test(self, models: Dict[str, Any], datasets: Dict[str, Any],
@@ -533,7 +889,15 @@ class TrainerEngine:
         performance and the mean of each loss value over batches, and the
         tracker (which logged the performance), as JAX returns them.
         ``full_config`` and ``wandb_experiment`` are accepted as JAX's and
-        unused there too."""
+        unused there too.
+
+        The eval step is a CUDA graph on the card (``train.graphs``: the
+        first batch warms it up, the second captures it), with the batch
+        copied into its static inputs. Under ``training.eval_pipeline``
+        (default true) batch k+1's step is enqueued before batch k's
+        predictions are read: the same steps on the same inputs, so the
+        predictions are those of the unpipelined loop bit for bit. The loss
+        values come back in one copy at the end."""
         self._check_device(device)
         cfg = trainer_config or self.trainer_config
         batch_size = int(cfg.get("batch_size", 10))
@@ -543,9 +907,21 @@ class TrainerEngine:
                                          shuffle=False)
         preds: List[Dict[str, Any]] = []
         step_values: List[Dict[str, torch.Tensor]] = []
-        for batch in loader:
-            values, pred = self.eval_step(self.to_device(batch))
-            step_values.append(values)
+        static: Dict[str, torch.Tensor] = {}
+        graph = StepGraph(lambda: self.eval_step(static), self.device)
+
+        def run(arrays):
+            if not static:
+                static.update({k: v.clone() for k, v in arrays.items()})
+            else:
+                for k, v in arrays.items():
+                    static[k].copy_(v)
+            values, pred = graph()
+            # the graph's next replay overwrites its outputs
+            return ({k: v.clone() for k, v in values.items()},
+                    {k: v.clone() for k, v in pred.items()})
+
+        def consume(batch, pred):
             pred_np = {k: v.float().cpu().numpy() for k, v in pred.items()}
             mask = np.asarray(batch["sample_mask"])
             for i in range(mask.shape[0]):
@@ -557,6 +933,20 @@ class TrainerEngine:
                     if v.ndim >= 1 and v.shape[0] == mask.shape[0]:
                         sample[f"{k}_pred"] = v[i]
                 preds.append(sample)
+
+        pipeline = bool(cfg.get("eval_pipeline", True))
+        pending = None
+        for batch in loader:
+            values, pred = run(self.to_device(batch))
+            step_values.append(values)
+            if pipeline:
+                if pending is not None:
+                    consume(*pending)
+                pending = (batch, pred)
+            else:
+                consume(batch, pred)
+        if pending is not None:
+            consume(*pending)
         perf = self.scheme.performance(preds, target_dataset)
         for k, v in _stack(step_values).items():
             perf[f"final-{target_dataset}/loss_{k}"] = float(v.mean())
@@ -565,11 +955,36 @@ class TrainerEngine:
         return preds, perf, tracker
 
 
+def _start_profiler(device: torch.device):
+    """A ``torch.profiler`` window, started (the card's activity too)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir) -> None:
+    """Stop the window and write its Chrome trace into ``profile_dir``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(
+        str(out / f"{time.strftime('%Y%m%d_%H%M%S')}.pt.trace.json"))
+
+
 def _stack(step_values: List[Dict[str, torch.Tensor]]
            ) -> Dict[str, np.ndarray]:
     """Per-step scalar values -> one float64 host array per key (one
-    device-to-host copy per key)."""
+    device-to-host copy)."""
     if not step_values:
         return {}
-    return {k: torch.stack([v[k].float() for v in step_values])
-            .cpu().double().numpy() for k in step_values[0]}
+    keys = list(step_values[0])
+    host = torch.stack([torch.stack([v[k].float() for k in keys])
+                        for v in step_values]).cpu().double().numpy()
+    return {k: host[:, j] for j, k in enumerate(keys)}

@@ -45,7 +45,35 @@ prints no result without CUDA. Phases, one line each:
    state bit for bit, launch one epoch's kernels plus the final
    evaluations, and keep finite losses) and ``training.inference_only``
    (the saved models alone: no backward kernel, the resumed run's metrics
-   within 1e-4 relative);
+   within 1e-4 relative). The dispatch keys stay at JAX's ``auto``: the
+   datasets go to the card, train and val run fused (the train and eval
+   steps CUDA graphs, replayed over the epoch plan) in one combined pass,
+   unpipelined since checkpoints are on; the train phase gates on that and
+   on the exact launches under replay;
+4b. dispatch: the train phase, the resume and this phase run under
+   PyTorch's deterministic mode (``device.deterministic``: cuDNN's
+   deterministic algorithms; an op without a deterministic version on the
+   card raises). The step loop (``epoch_fuse: false, device_data_cache:
+   false``, its host batches through ``PrefetchBatcher``) twice, to learn
+   whether it reproduces itself bit for bit; the fused run against it
+   (``torch.equal`` metrics, parameters and optimizer state if it does,
+   else total loss and each model's move from the common start within 4x
+   the loop's own spread); two controls, the fused run with a planted
+   fault (the registration net's optimizer never steps; the learning
+   rates one step late), which that gate must fail; ``save_checkpoint:
+   false``, which must pipeline, ``torch.equal`` to the unpipelined fused
+   run; the fused resume to a third epoch ``torch.equal`` to an
+   uninterrupted 3-epoch fused run; three 768x512 train steps, warmed up,
+   captured and replayed, ``torch.equal`` to three eager steps (cuFFT
+   under capture); ``PrefetchBatcher`` over the flagship's host loader
+   ``torch.equal`` to its batches; ``engine.test`` with ``eval_pipeline``
+   on and off (``torch.equal`` predictions); then, outside the
+   deterministic mode, each epoch's host wall of the 2-epoch run in turns
+   step loop, fused, pipelined, pipelined, fused, step loop, and in turns
+   loop, graph, graph, loop the host time, device time, idle share and
+   peak memory of the flagship train step, the flagship eval step and the
+   reg train step, with one replayed epoch's counted K1-K4 launches held to the
+   kernels in its profiler trace;
 5. train step: kernel path vs plain path on one train step (loss and every
    parameter's gradient), a 10-step overfit of one batch, and the train
    step's time;
@@ -87,7 +115,9 @@ prints no result without CUDA. Phases, one line each:
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
 train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt``,
 ``DIR/large_train_profile.txt``, ``DIR/solve_train_profile.txt``,
-``DIR/reg_train_profile.txt`` and ``DIR/regression_train_profile.txt``.
+``DIR/reg_train_profile.txt`` and ``DIR/regression_train_profile.txt``,
+and of the dispatch phase's timed steps, each mode apart, to
+``DIR/dispatch_<step>_{loop,graph}_profile.txt``.
 ``--baseline DIR`` builds the kernels of DIR (a checkout of an earlier
 commit, ``git archive``) as well, times each kernel alone in turns with
 this tree's (baseline, this, this, baseline) and says whether K1's and
@@ -99,6 +129,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import math
 import subprocess
@@ -109,6 +140,7 @@ import types
 import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -884,23 +916,24 @@ def n_euler_steps(cfg) -> int:
                 if "n_integration_steps" in mc)
 
 
-def counts(ek, wk):
+def counts():
     """(K2, K3, K1, K4, K5, K6, K7) launches so far."""
-    return (ek.launches, ek.bwd_launches, wk.launches, wk.bwd_launches,
-            wk.fused_bwd_launches, ek.solve_launches, ek.solve_bwd_launches)
+    from cardiax_torch.ops import counters
+    c = counters.launches
+    return tuple(c[k] for k in ("epdiff_step_fwd", "epdiff_step_bwd",
+                                "mc_warp_fwd", "mc_warp_disp_bwd",
+                                "mc_warp_fused_bwd", "epdiff_step_solve_fwd",
+                                "epdiff_step_solve_bwd"))
 
 
-def zero_counts(ek, wk):
-    ek.launches = ek.bwd_launches = 0
-    ek.solve_launches = ek.solve_bwd_launches = 0
-    wk.launches = wk.bwd_launches = wk.fused_bwd_launches = 0
+def zero_counts():
+    from cardiax_torch.ops import counters
+    counters.reset()
 
 
-def named_counts(ek, wk):
-    return dict(zip(("epdiff_step_fwd", "epdiff_step_bwd", "mc_warp_fwd",
-                     "mc_warp_disp_bwd", "mc_warp_fused_bwd",
-                     "epdiff_step_solve_fwd", "epdiff_step_solve_bwd"),
-                    counts(ek, wk)))
+def named_counts():
+    from cardiax_torch.ops import counters
+    return counters.snapshot()
 
 
 @contextlib.contextmanager
@@ -914,7 +947,7 @@ def plain_path(sh, ek, wk):
                                  m.device)
         return ek._epdiff_step_solve_plain(m, u, *ops, dt, radius)
 
-    before = counts(ek, wk)
+    before = counts()
     try:
         sh.epdiff_step = ek._epdiff_step_plain
         sh.epdiff_step_solve = step_solve_plain
@@ -924,7 +957,7 @@ def plain_path(sh, ek, wk):
     finally:
         sh.epdiff_step, sh.epdiff_step_solve, wk.MCWarp = saved
     torch.cuda.synchronize()
-    require(counts(ek, wk) == before, "the plain run launched a kernel")
+    require(counts() == before, "the plain run launched a kernel")
 
 
 def build_slice(seed: int = 0):
@@ -954,10 +987,10 @@ def run_slice(profile_dir):
                   ["n_integration_steps"])
     batch_size = int(cfg["training"]["batch_size"])
     # --- the main path: counts from 0 around engine.test only -------------
-    zero_counts(ek, wk)
+    zero_counts()
     preds, perf, _ = engine.test({}, {"test": dataset})
     torch.cuda.synchronize()
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     require(sum(launches.values()) == launches["epdiff_step_fwd"]
             + launches["mc_warp_fwd"],
             f"engine.test launched a kernel other than K1, K2: {launches}")
@@ -1031,8 +1064,11 @@ def run_slice(profile_dir):
 
 def profile_steps(step, reps: int = 3):
     """Profile ``reps`` calls of ``step`` after one warm-up call. Returns
-    the device time per call, the union of the CUDA kernels' intervals (or
-    None if the trace holds no device events), and the profile."""
+    the device time per call, the union of the intervals of the CUDA
+    kernels, copies and sets (or None if the trace holds no device events),
+    and the profile. GPU-side spans of annotations (``Optimizer.step``,
+    ``record_function``) are not device work: in eager mode such a span
+    also covers the host's gaps between its kernels."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1041,11 +1077,21 @@ def profile_steps(step, reps: int = 3):
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
+    busy = device_union_ms(prof)
+    return (None if busy is None else busy / reps), prof
+
+
+def device_union_ms(prof, annotations: bool = False):
+    """The union of the device events' intervals in ``prof`` (ms), the
+    GPU-side annotation spans left out unless ``annotations``; None
+    without device events."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (annotations
+                        or not getattr(e, "is_user_annotation", False)))
     if not spans:
-        return None, prof
+        return None
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -1054,7 +1100,7 @@ def profile_steps(step, reps: int = 3):
         else:
             hi = max(hi, end)
     busy += hi - lo
-    return busy / reps / 1e3, prof
+    return busy / 1e3
 
 
 def busy_turns(step) -> str:
@@ -1078,13 +1124,14 @@ def busy_line(busy_ms, step_ms: float) -> str:
             f"steps ({1 - busy_ms / step_ms:.1%} idle)")
 
 
-def write_profile(prof, out_dir: Path, kind: str) -> None:
-    """The profiler table of 3 ``kind`` steps, to ``out_dir``."""
+def write_profile(prof, out_dir: Path, kind: str, calls: str = "") -> None:
+    """The profiler table of 3 ``kind`` steps (or ``calls``), to
+    ``out_dir``."""
     out_dir.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     path = out_dir / f"{kind}_profile.txt"
-    path.write_text(f"{torch.cuda.get_device_name(0)}; 3 {kind} steps\n"
-                    f"{table}\n")
+    path.write_text(f"{torch.cuda.get_device_name(0)}; "
+                    f"{calls or f'3 {kind} steps'}\n{table}\n")
     print(f"profile: {path}")
 
 
@@ -1101,12 +1148,30 @@ def set_fields(cfg, changes) -> None:
 @contextlib.contextmanager
 def watched_main_run():
     """Around ``main.run``: the warnings it raised (``caught``), each
-    checkpoint save's host time and file size (``saves``), and the training
-    state right after a resume restored it (``restored``)."""
+    checkpoint save's host time and file size (``saves``), the training
+    state right after a resume restored it (``restored``), each engine
+    that trained with the loaders it trained on (``engines``: (engine,
+    train loader, val loader)), the parameters each engine's set-up drew
+    (``initial``) and how many batches a ``PrefetchBatcher`` carried to the
+    card (``prefetched``)."""
+    from cardiax_torch.data.prefetch import PrefetchBatcher
     from cardiax_torch.io.checkpoints import CheckpointManager, to_cpu
     from cardiax_torch.train.engine import TrainerEngine
-    saves, restored = [], []
+    saves, restored, engines, initial = [], [], [], []
+    prefetched = [0]
     save, load = CheckpointManager.save, TrainerEngine._load_training_state
+    cache, setup = TrainerEngine._maybe_device_cache, TrainerEngine.setup
+    to_device = PrefetchBatcher._to_device
+
+    def recorded_setup(self, *args, **kwargs):
+        setup(self, *args, **kwargs)
+        initial.append({n: {k: v.detach().cpu().clone()
+                            for k, v in m.state_dict().items()}
+                        for n, m in self.modules.items()})
+
+    def counted_to_device(self, batch, stream):
+        prefetched[0] += 1
+        return to_device(self, batch, stream)
 
     def timed_save(self, epoch, *args, **kwargs):
         t0 = time.perf_counter()
@@ -1122,21 +1187,61 @@ def watched_main_run():
             "params": {n: {k: v.detach().cpu().clone()
                            for k, v in m.state_dict().items()}
                        for n, m in self.modules.items()},
-            "opt_states": to_cpu({
-                n: {"optimizer": opt.state_dict(),
-                    "schedule": sched.state_dict()}
-                for n, (opt, sched) in self.optimizers.items()})})
+            "opt_states": to_cpu(self._optimizer_states())})
+
+    def recorded_cache(self, loader, cfg, tag):
+        out = cache(self, loader, cfg, tag)
+        if tag == "train":
+            engines.append([self, out, None])
+        elif engines and engines[-1][0] is self:
+            engines[-1][2] = out
+        return out
 
     CheckpointManager.save, TrainerEngine._load_training_state = \
         timed_save, recorded_load
+    TrainerEngine._maybe_device_cache = recorded_cache
+    TrainerEngine.setup = recorded_setup
+    PrefetchBatcher._to_device = counted_to_device
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            yield types.SimpleNamespace(caught=caught, saves=saves,
-                                        restored=restored)
+            watch = types.SimpleNamespace(
+                caught=caught, saves=saves, restored=restored,
+                engines=engines, initial=initial, prefetched=0)
+            yield watch
     finally:
         CheckpointManager.save, TrainerEngine._load_training_state = \
             save, load
+        TrainerEngine._maybe_device_cache = cache
+        TrainerEngine.setup = setup
+        PrefetchBatcher._to_device = to_device
+        watch.prefetched = prefetched[0]
+
+
+def dispatch_text(watch, label, pipelined: bool) -> str:
+    """Gate the one engine of a ``main.run`` on JAX's ``auto`` engagement
+    for a cacheable dataset: both datasets resident on the card, train and
+    val fused, one combined train+val pass, pipelined as given (JAX
+    pipelines only without checkpoints), every fused step a CUDA graph.
+    Returns the summary text."""
+    from cardiax_torch.data.loader import DeviceBatcher
+    require(len(watch.engines) == 1,
+            f"{label}: {len(watch.engines)} engines trained")
+    eng, train_loader, val_loader = watch.engines[0]
+    got = (isinstance(train_loader, DeviceBatcher),
+           isinstance(val_loader, DeviceBatcher), eng.last_fuse_engaged,
+           eng.last_fuse_trainval, eng.last_pipeline_engaged)
+    want = (True, True, (True, True), True, pipelined)
+    require(got == want,
+            f"{label}: (train resident, val resident, fused, train+val, "
+            f"pipelined) = {got}, not JAX's {want}")
+    graphs = [r.graph for r in eng._runners.values()]
+    require(graphs and all(g.graph is not None for g in graphs),
+            f"{label}: a fused step was not captured")
+    return (f"dispatch as JAX's auto: datasets resident, fused train and "
+            f"val, combined train+val, {'' if pipelined else 'not '}"
+            f"pipelined; {len(graphs)} CUDA graphs captured, "
+            f"{sum(g.replays for g in graphs)} replays")
 
 
 def figure_text(run_dir: Path, caught, expected: int) -> str:
@@ -1172,9 +1277,7 @@ def run_train(tmp: Path, label: str = "train"):
     from cardiax_torch import main as port_main
     from cardiax_torch.data.synthetic import make_dataset, save_npy
     from cardiax_torch.io.checkpoints import CheckpointManager
-    from cardiax_torch.ops import epdiff_kernels as ek
     from cardiax_torch.ops import shooting as sh
-    from cardiax_torch.ops import warp_kernels as wk
     cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
     t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
     npy = tmp / "slices.npy"
@@ -1196,13 +1299,13 @@ def run_train(tmp: Path, label: str = "train"):
     vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
                            * epochs))
     n_figs = len(range(0, epochs, vis_every))
-    zero_counts(ek, wk)
+    zero_counts()
     t0 = time.perf_counter()
     with watched_main_run() as watch:
         res = port_main.run(copy.deepcopy(cfg))
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     train_steps = epochs * math.ceil(25 / batch_size)
     # validation every epoch, each figure's val batch, then the final val
     # and test evaluations
@@ -1241,18 +1344,16 @@ def run_train(tmp: Path, label: str = "train"):
           f"{[round(v, 6) for v in hist['val/total_loss']]}; checkpoints of "
           f"epochs {saved} ({save_text(watch.saves)}); "
           f"{figure_text(run_dir, watch.caught, n_figs)}; launches "
-          f"{launches}")
+          f"{launches}; {dispatch_text(watch, label, pipelined=False)}")
     return launches, cfg, res
 
 
-def run_resume(cfg) -> None:
+def run_resume(cfg):
     """Resume the train phase's run (``cfg``) to one more epoch, then
     evaluate its saved models alone (``inference_only``); launch counts from
-    0 around each."""
+    0 around each. Returns the resumed run's result."""
     from cardiax_torch import main as port_main
     from cardiax_torch.io.checkpoints import CheckpointManager
-    from cardiax_torch.ops import epdiff_kernels as ek
-    from cardiax_torch.ops import warp_kernels as wk
     run_dir = Path(cfg["saving"]["saving_dir"])
     mgr = CheckpointManager(run_dir / "checkpoints")
     start = mgr.latest_epoch() + 1
@@ -1265,13 +1366,13 @@ def run_resume(cfg) -> None:
     vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
                            * epochs))
     n_figs = int(start % vis_every == 0)
-    zero_counts(ek, wk)
+    zero_counts()
     t0 = time.perf_counter()
     with watched_main_run() as watch:
         res = port_main.run(copy.deepcopy(cfg))
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     require(len(watch.restored) == 1, "resume: the state was not restored")
     got = watch.restored[0]
     for name, state in saved["params"].items():
@@ -1320,12 +1421,12 @@ def run_resume(cfg) -> None:
     cfg_inf = copy.deepcopy(cfg)
     set_fields(cfg_inf, {"training.inference_only": True,
                          "training.resume": False})
-    zero_counts(ek, wk)
+    zero_counts()
     t0 = time.perf_counter()
     inf = port_main.run(cfg_inf)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     expect = {"mc_warp_fwd": 2, "epdiff_step_fwd": 2 * n_steps,
               "epdiff_step_bwd": 0, "mc_warp_disp_bwd": 0,
               "mc_warp_fused_bwd": 0, "epdiff_step_solve_fwd": 0,
@@ -1345,6 +1446,7 @@ def run_resume(cfg) -> None:
           f"model-*.pt, val and test metrics equal the resumed run's within "
           f"relative {worst:.3e} (tol 1e-4) in {secs:.2f} s; launches "
           f"{launches}")
+    return res
 
 
 def grads_of(engine):
@@ -1396,12 +1498,12 @@ def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship",
 
     engine = fresh_engine()
     arrays = engine.to_device(batch)
-    before = counts(ek, wk)
+    before = counts()
     values_k = engine.backward(arrays)
     grads_k = grads_of(engine)
     torch.cuda.synchronize()
     n_steps = n_euler_steps(cfg)
-    step_counts = tuple(a - b for a, b in zip(counts(ek, wk), before))
+    step_counts = tuple(a - b for a, b in zip(counts(), before))
     expect = (0, 0, 1, 1, 0, n_steps, n_steps) if sh._FUSED_SOLVE \
         else (n_steps, n_steps, 1, 1, 0, 0, 0)
     require(step_counts == expect,
@@ -1585,10 +1687,10 @@ def run_ops():
                                                             names])))
         return {k: v.detach() for k, v in outs.items()}, grads
 
-    zero_counts(ek, wk)
+    zero_counts()
     outs_k, grads_k = run()
     torch.cuda.synchronize()
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     # expmap_svf: one K1 and one K5 per squaring; compose: one each per
     # channel; deform_image: one each
     expect = {"mc_warp_fwd": 7, "mc_warp_disp_bwd": 0, "mc_warp_fused_bwd": 7,
@@ -1631,8 +1733,6 @@ def run_reg(tmp: Path, card: str, profile_dir):
                                               make_registration_pairs,
                                               save_npy)
     from cardiax_torch.io.checkpoints import CheckpointManager
-    from cardiax_torch.ops import epdiff_kernels as ek
-    from cardiax_torch.ops import warp_kernels as wk
     cfg = json.loads((ROOT / "configs" / "reg.json").read_text())
     pairs = make_registration_pairs(make_dataset(
         n_subjects=4, slices_per_subject=1, h=128, w=128, n_frames=20,
@@ -1659,13 +1759,13 @@ def run_reg(tmp: Path, card: str, profile_dir):
                            * epochs))
     n_vis = len(range(0, epochs, vis_every))
     run_cfg = copy.deepcopy(cfg)
-    zero_counts(ek, wk)
+    zero_counts()
     t0 = time.perf_counter()
     with watched_main_run() as watch:
         res = port_main.run(run_cfg)
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     train_steps = epochs * math.ceil(n_train / batch_size)
     # val each epoch, the first val batch of each figure epoch (the reg
     # batch has no strain matrix, so no figure is drawn), final val and test
@@ -1740,21 +1840,19 @@ def scheme_main_run(name, npy, tmp: Path, split):
     the result, the launches and the host seconds."""
     from cardiax_torch import main as port_main
     from cardiax_torch.io.checkpoints import CheckpointManager
-    from cardiax_torch.ops import epdiff_kernels as ek
-    from cardiax_torch.ops import warp_kernels as wk
     cfg = json.loads((ROOT / "configs" / f"{name}.json").read_text())
     changes = {"training.epochs": 2,
                "saving.saving_dir": str(tmp / name),
                "data.npy_filename": str(npy),
                "data_split": {"method": "by_count", "splits": split}}
     set_fields(cfg, changes)
-    zero_counts(ek, wk)
+    zero_counts()
     t0 = time.perf_counter()
     with watched_main_run() as watch:
         res = port_main.run(copy.deepcopy(cfg))
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     hist = res["train_loss_dict"]
     for key in ("train/total_loss", "val/total_loss"):
         require(len(hist[key]) == 2
@@ -1898,8 +1996,6 @@ def run_large(tmp: Path, profile_dir):
     from cardiax_torch.data.datasets import JointDataset
     from cardiax_torch.data.loader import Batcher
     from cardiax_torch.data.synthetic import make_dataset, save_npy
-    from cardiax_torch.ops import epdiff_kernels as ek
-    from cardiax_torch.ops import warp_kernels as wk
     h, w, t_myo, epochs = 768, 512, 8, 2
     cfg = large_config()
     data = make_dataset(n_subjects=4, slices_per_subject=2, h=h, w=w,
@@ -1918,14 +2014,14 @@ def run_large(tmp: Path, profile_dir):
           f"Ts=16, {n_steps} Euler steps on the {h // 2}x{w // 2} grid, "
           f"final-warp radius 12; 8 synthetic slices (train 4, val 2, "
           f"test 2), {epochs} epochs")
-    zero_counts(ek, wk)
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = port_main.run(cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     run_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = named_counts(ek, wk)
+    launches = named_counts()
     train_steps = epochs * 2
     eval_batches = epochs + 2      # val each epoch, final val and test
     expect = {"mc_warp_fwd": train_steps + eval_batches,
@@ -1969,12 +2065,587 @@ def run_large(tmp: Path, profile_dir):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# dispatch: the engine's modes on the card, CUDA graphs against the loop      #
+# --------------------------------------------------------------------------- #
+
+def state_equal(a, b) -> bool:
+    """Nested dicts/lists of tensors and numbers, equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() \
+            and all(state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(state_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def final_params(res):
+    """The trained (best) parameters of a ``main.run`` result, on the CPU."""
+    return {name[:-len("_model")]: {k: v.detach().cpu().clone()
+                                    for k, v in b.module.state_dict().items()}
+            for name, b in res["models"].items() if name.endswith("_model")}
+
+
+def run_diff(a, b, ref):
+    """How run ``a`` differs from run ``b``, each (per-epoch metrics,
+    parameters, optimizer state or None), ``ref`` the parameters both
+    started from: whether bit-equal; the worst relative difference of a
+    per-epoch total loss; and how far apart the runs moved each model,
+    ||(a - ref) - (b - ref)|| / ||b - ref|| over all its floating
+    tensors, for the model where that is largest."""
+    (ma, pa, oa), (mb, pb, ob) = a, b
+    exact = ma == mb and state_equal(pa, pb) \
+        and (oa is None or state_equal(oa, ob))
+    loss_rel = max((abs(x - y) / max(1.0, abs(y))
+                    for key in ("train/total_loss", "val/total_loss")
+                    for x, y in zip(ma[key], mb[key])), default=0.0)
+    move_rel, worst = 0.0, ""
+    for name, state in pb.items():
+        d2 = m2 = 0.0
+        for k, v in state.items():
+            if not v.is_floating_point():
+                continue
+            v = v.detach().double().cpu()
+            d2 += float(((pa[name][k].detach().double().cpu() - v) ** 2)
+                        .sum())
+            m2 += float(((v - ref[name][k].double().cpu()) ** 2).sum())
+        rel = math.sqrt(d2 / m2) if m2 > 0 else (0.0 if d2 == 0 else math.inf)
+        if rel >= move_rel:
+            move_rel, worst = rel, name
+    return {"exact": exact, "loss_rel": loss_rel, "move_rel": move_rel,
+            "worst": worst}
+
+
+def diff_text(diff) -> str:
+    return (f"{'bit-equal' if diff['exact'] else 'not bit-equal'} "
+            f"(per-epoch total loss max rel diff {diff['loss_rel']:.3e}; "
+            f"the runs moved {diff['worst']} {diff['move_rel']:.3e} of its "
+            f"move apart)")
+
+
+def gate_runs(label, diff, limits) -> str:
+    """``limits`` None: metrics, parameters and optimizer state
+    ``torch.equal``; else (total loss, move) limits: the worst per-epoch
+    total loss within ``limits[0]`` relative, every model's move within
+    ``limits[1]`` of itself (``run_diff``)."""
+    if limits is None:
+        require(diff["exact"], f"{label}: not bit-equal: {diff_text(diff)}")
+    else:
+        require(diff["loss_rel"] <= limits[0]
+                and diff["move_rel"] <= limits[1],
+                f"{label}: outside the limits {limits}: {diff_text(diff)}")
+    return f"{label}: {diff_text(diff)}"
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """A fault planted in the engine for a control run. "no reg step":
+    the registration net's optimizer never steps; "lr late": every step
+    takes the learning rates of the step before (the schedules' first
+    step is skipped)."""
+    from cardiax_torch.train.engine import TrainerEngine
+    update, schedules = TrainerEngine._update, TrainerEngine._schedules_step
+
+    def update_without_reg(self, arrays):
+        values = self.backward(arrays)
+        for name, (opt, _) in self.optimizers.items():
+            if name != "joint_register_strainmat":
+                opt.step()
+        return values
+
+    def schedules_late(self):
+        if getattr(self, "_planted_skipped", False):
+            schedules(self)
+        self._planted_skipped = True
+
+    if fault == "no reg step":
+        TrainerEngine._update = update_without_reg
+    elif fault == "lr late":
+        TrainerEngine._schedules_step = schedules_late
+    else:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        TrainerEngine._update, TrainerEngine._schedules_step = \
+            update, schedules
+
+
+def ckpt_state(run_dir: Path, epoch: int):
+    from cardiax_torch.io.checkpoints import CheckpointManager
+    state = CheckpointManager(run_dir / "checkpoints").restore(epoch)
+    return state["params"], state["opt_states"]
+
+
+def epoch_walls(watch, pipelined: bool = False) -> str:
+    """Each epoch's host wall (``host_profile`` ``total``; under pipelining
+    the cadence, the difference of consecutive ``t_done``) and, where
+    checkpoints are saved, the save's share (``ckpt``)."""
+    rows = watch.engines[0][0].host_profile_rows
+    if pipelined:
+        return fmt_list([b["t_done"] - a["t_done"]
+                         for a, b in zip(rows, rows[1:])])
+    return (f"{fmt_list([r['total'] for r in rows])} (checkpoint "
+            f"{fmt_list([r['ckpt'] for r in rows])})")
+
+
+def fmt_list(xs) -> str:
+    return "[" + ", ".join(f"{x * 1e3:.3f}" for x in xs) + "] ms"
+
+
+def dispatch_main_run(base_cfg, label, changes, expect_launches):
+    """``main.run`` on the train phase's config with ``changes``; launch
+    counts from 0 around it must equal ``expect_launches`` (the same work).
+    Returns (result, watch, host seconds)."""
+    from cardiax_torch import main as port_main
+    cfg = copy.deepcopy(base_cfg)
+    set_fields(cfg, changes)
+    zero_counts()
+    t0 = time.perf_counter()
+    with watched_main_run() as watch:
+        res = port_main.run(cfg)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = named_counts()
+    if expect_launches is not None:
+        require(launches == expect_launches,
+                f"{label}: launches {launches} != {expect_launches}")
+    hist = res["train_loss_dict"]
+    require(all(math.isfinite(v) for key in ("train/total_loss",
+                                             "val/total_loss")
+                for v in hist[key]), f"{label}: losses {hist}")
+    return res, watch, secs, launches
+
+
+def profiled_launches(step):
+    """The K1-K4 launches the counters add over one ``step()`` and the
+    kernels the profiler saw on the card over the same call, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"mc_warp_fwd": ("mc_warp_fwd_kernel",),
+             "epdiff_step_fwd": ("epdiff_step_fwd_kernel",),
+             "epdiff_step_bwd": ("epdiff_step_bwd_tiled",
+                                 "epdiff_step_bwd_chunked"),
+             "mc_warp_disp_bwd": ("mc_warp_disp_bwd_kernel",)}
+    torch.cuda.synchronize()
+    before = named_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    after = named_counts()
+    counted = {k: after[k] - before[k] for k in names}
+    seen = {k: 0 for k in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k, subs in names.items():
+                if any(sub in e.name for sub in subs):
+                    seen[k] += 1
+    return counted, seen
+
+
+def timed_ms(fn, steps_per_call: int, calls: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (calls * steps_per_call) * 1e3
+
+
+def memory_gb(fn, calls: int = 3):
+    """(peak allocated, growth of the reserved memory) in GB over
+    ``calls`` calls of ``fn`` from an emptied cache: for a graph the first
+    calls warm it up and capture it, and its private pool stays reserved."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() / 1e9,
+            (torch.cuda.memory_reserved() - reserved) / 1e9)
+
+
+def sm_clock_mhz(fn, seconds: float = 1.0):
+    """The card's mean SM clock while ``fn`` runs back to back for about
+    ``seconds`` (``nvidia-smi`` sampled every 20 ms), or None."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        proc.stdout.readline()              # sampling has started
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    vals = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+    return sum(vals) / len(vals) if vals else None
+
+
+def turns_line(label, loop, graph, card, what, profile_dir=None) -> dict:
+    """``loop``/``graph``: (fn, steps a call). Peak memory of each (loop
+    first, from an emptied cache; the graph's includes its warm-up and
+    capture), host time a step in turns loop, graph, graph, loop (>= 10
+    synchronised steps a turn), device busy a step from the profiler, the
+    idle share, and the mean SM clock over a second of steps; with
+    ``profile_dir`` each mode's profiler table. Prints one line; returns
+    the numbers."""
+    fns = {"loop": loop, "graph": graph}
+    mem = {w: memory_gb(fns[w][0]) for w in ("loop", "graph")}
+    host = {"loop": [], "graph": []}
+    for w in ("loop", "graph", "graph", "loop"):
+        fn, n = fns[w]
+        host[w].append(timed_ms(fn, n, max(1, math.ceil(10 / n))))
+    out = {}
+    parts = []
+    for w in ("loop", "graph"):
+        fn, n = fns[w]
+        busy, prof = profile_steps(fn)
+        busy = None if busy is None else busy / n
+        spans = device_union_ms(prof, annotations=True)
+        spans = None if spans is None else spans / 3 / n
+        if profile_dir:
+            write_profile(prof, Path(profile_dir),
+                          f"dispatch_{label.replace(' ', '_')}_{w}",
+                          f"3 calls of {n} {label}{'s' if n > 1 else ''}, "
+                          f"{w}")
+        mhz = sm_clock_mhz(fn)
+        h = sum(host[w]) / len(host[w])
+        out[w] = {"host_ms": host[w], "busy_ms": busy, "sm_mhz": mhz,
+                  "busy_with_spans_ms": spans,
+                  "peak_alloc_gb": mem[w][0], "reserved_gb": mem[w][1]}
+        idle = "not measured" if busy is None else f"{1 - busy / h:.1%}"
+        parts.append(
+            f"{w} host {', '.join(f'{x:.3f}' for x in host[w])} ms/step, "
+            f"device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}/step "
+            f"({'not measured' if spans is None else f'{spans:.3f} ms'} "
+            f"with the annotation spans), idle {idle}, SM clock "
+            f"{'not measured' if mhz is None else f'{mhz:.0f} MHz'}, peak "
+            f"allocated {mem[w][0]:.3f} GB, reserved +{mem[w][1]:.3f} GB")
+    print(f"dispatch {label} ({what}; {card}; turns loop, graph, graph, "
+          f"loop): " + "; ".join(parts))
+    return out
+
+
+def dispatch_engine(cfg, n_pairs, seed=1, frame_size=None):
+    from cardiax_torch.train import build_trainer
+    engine = build_trainer(cfg["training"], None, cfg)
+    engine.setup(random_nets(cfg, n_pairs, seed=seed, frame_size=frame_size),
+                 steps_per_epoch=3)
+    return engine
+
+
+def check_prefetch(cfg) -> str:
+    """``PrefetchBatcher`` on the card over the flagship's host loader
+    (full-width items, batch 10, shuffled): every batch's numeric fields
+    ``torch.equal`` to the host batch, the rest passed through."""
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.prefetch import PrefetchBatcher
+    from cardiax_torch.data.synthetic import make_dataset
+    t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
+    ds = JointDataset(make_dataset(n_subjects=5, slices_per_subject=5, h=128,
+                                   w=128, n_frames=t_myo, seed=12),
+                      dataset_config=cfg["datasets"]["train"])
+    bs = int(cfg["training"]["batch_size"])
+    host = list(Batcher(ds, bs, shuffle=True, seed=4))
+    dev = list(PrefetchBatcher(Batcher(ds, bs, shuffle=True, seed=4),
+                               torch.device("cuda")))
+    n_fields = 0
+    require(len(dev) == len(host), "prefetch: other batch count")
+    for a, b in zip(dev, host):
+        require(a.keys() == b.keys(), "prefetch: other fields")
+        for k, v in b.items():
+            if isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
+                require(a[k].is_cuda and torch.equal(
+                    a[k].cpu(), torch.from_numpy(v)),
+                    f"prefetch: field {k} differs")
+                n_fields += 1
+            else:
+                require(a[k] is v or a[k] == v, f"prefetch: field {k}")
+    return (f"PrefetchBatcher over the flagship host loader ({len(ds)} "
+            f"items, batch {bs}): {len(dev)} batches, {n_fields} numeric "
+            f"fields on the card torch.equal to the host batches")
+
+
+def graph_vs_loop_train(label, cfg, dataset, n_pairs, card, what,
+                        profile_dir=None):
+    """A loop engine (``train_step`` on one pre-uploaded batch) and a graph
+    engine (``EpochRunner`` over ``dataset`` resident on the card, 3 steps
+    an epoch) from the same weights, timed in turns; then one profiled
+    graph epoch: the counted K1-K4 launches equal the kernels the trace
+    shows."""
+    from cardiax_torch.data.loader import Batcher, DeviceBatcher
+    from cardiax_torch.train.graphs import EpochRunner
+    bs = int(cfg["training"]["batch_size"])
+    loop_eng = dispatch_engine(cfg, n_pairs)
+    arrays = loop_eng.to_device(next(iter(Batcher(dataset, bs))))
+    graph_eng = dispatch_engine(cfg, n_pairs)
+    loader = DeviceBatcher(dataset, bs, shuffle=True, seed=3,
+                           device=torch.device("cuda"))
+    runner = EpochRunner(loader, graph_eng._update,
+                         after_step=graph_eng._schedules_step)
+    n = len(loader)
+
+    def graph_epoch():
+        return runner(*loader.epoch_plan())
+    out = turns_line(label, (lambda: loop_eng.train_step(arrays), 1),
+                     (graph_epoch, n), card, what, profile_dir)
+    vals = graph_epoch()[:, list(runner.keys).index("total_loss")]
+    require(bool(torch.isfinite(vals).all()), f"{label}: graph losses {vals}")
+    counted, seen = profiled_launches(graph_epoch)
+    require(counted == seen and all(v > 0 for v in counted.values()),
+            f"{label}: launches counted over one replayed epoch {counted} "
+            f"!= the kernels in its trace {seen}")
+    print(f"dispatch {label}: one replayed epoch of {n} steps: counted "
+          f"launches {counted} = the kernels in its profiler trace")
+    return out
+
+
+def run_dispatch(tmp: Path, card: str, train_cfg, train_res, resumed_res,
+                 train_launches):
+    """JAX's dispatch on the card: ``auto`` engages the resident data, the
+    fused (CUDA graph) train and val steps and the combined pass (gated in
+    the train phase), and the pipeline once checkpoints are off; graph vs
+    step loop, with two planted faults as controls; fused resume; cuFFT
+    under capture; ``PrefetchBatcher``; eval_pipeline. Runs
+    under ``device.deterministic`` (as the train phase does), so two runs
+    of the same work can be compared bit for bit."""
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.synthetic import make_dataset
+    from cardiax_torch.train.graphs import StepGraph
+    fused_dir = Path(train_cfg["saving"]["saving_dir"])
+    n_train = math.ceil(25 / int(train_cfg["training"]["batch_size"]))
+
+    # --- the step loop twice: does it reproduce itself bit for bit? -------
+    loops = []
+    for i in range(2):
+        res, watch, secs, _ = dispatch_main_run(train_cfg, f"loop {i}", {
+            "training.epoch_fuse": False,
+            "training.device_data_cache": False,
+            "saving.saving_dir": str(tmp / f"loop{i}")}, train_launches)
+        eng = watch.engines[0][0]
+        require(eng.last_fuse_engaged == (False, False)
+                and not eng.last_pipeline_engaged,
+                f"loop {i}: the fused path engaged")
+        # 2 epochs of the train batches and the one val batch, each carried
+        # to the card by the step loop's PrefetchBatcher
+        require(watch.prefetched == 2 * (n_train + 1),
+                f"loop {i}: {watch.prefetched} batches prefetched, not "
+                f"{2 * (n_train + 1)}")
+        loops.append((res, watch, secs))
+    ref = loops[0][1].initial[0]
+    require(len(loops[1][1].initial) == 1
+            and state_equal(loops[1][1].initial[0], ref),
+            "the two loop runs did not start from the same parameters")
+
+    def run_of(res, run_dir, epoch):
+        params, opt = ckpt_state(run_dir, epoch)
+        return res["train_loss_dict"], params, opt
+
+    loop_a = run_of(loops[0][0], tmp / "loop0", 1)
+    loop_b = run_of(loops[1][0], tmp / "loop1", 1)
+    loop_diff = run_diff(loop_a, loop_b, ref)
+    # bit-reproducible: the graph path is held to torch.equal; else to 4x
+    # the loop's own spread, which the controls below must exceed
+    limits = None if loop_diff["exact"] else (
+        4 * loop_diff["loss_rel"], 4 * loop_diff["move_rel"])
+    print(f"dispatch: step loop vs step loop (epoch_fuse false, "
+          f"device_data_cache false, deterministic mode; 2 epochs, "
+          f"{loops[0][1].prefetched} batches each through PrefetchBatcher; "
+          f"the epoch-1 checkpoint's parameters and optimizer state): "
+          f"{diff_text(loop_diff)}; so the graph path is held to "
+          + ("torch.equal" if limits is None else
+             f"total loss {limits[0]:.3e} relative an epoch and every "
+             f"model's move {limits[1]:.3e} of itself (4x loop vs loop)"))
+    fused = run_of(train_res, fused_dir, 1)
+    print("dispatch: " + gate_runs("fused (CUDA graphs) vs step loop",
+                                   run_diff(fused, loop_a, ref), limits))
+
+    # --- controls: planted faults on the graph path must fail that gate --
+    for fault in ("no reg step", "lr late"):
+        run_dir = tmp / f"control_{fault.replace(' ', '_')}"
+        with planted(fault):
+            res, _, _, _ = dispatch_main_run(
+                train_cfg, f"control {fault}",
+                {"saving.saving_dir": str(run_dir)}, None)
+        diff = run_diff(run_of(res, run_dir, 1), loop_a, ref)
+        caught = not diff["exact"] if limits is None else (
+            diff["loss_rel"] > limits[0] or diff["move_rel"] > limits[1])
+        require(caught, f"control {fault}: the graph-vs-loop gate passes a "
+                        f"planted fault: {diff_text(diff)}")
+        print(f"dispatch: control, fused with a planted fault ({fault}) vs "
+              f"step loop: {diff_text(diff)}: the gate fails it")
+
+    # --- pipelined = unpipelined fused -----------------------------------
+    res, watch, _, pipe_launches = dispatch_main_run(
+        train_cfg, "pipelined", {"saving.save_checkpoint": False,
+                                 "saving.saving_dir": str(tmp / "pipe")},
+        train_launches)
+    text = dispatch_text(watch, "pipelined", pipelined=True)
+    print("dispatch: " + gate_runs(
+        "pipelined vs unpipelined fused (save_checkpoint false; per-epoch "
+        "metrics and final parameters)",
+        run_diff((res["train_loss_dict"], final_params(res), None),
+                 (train_res["train_loss_dict"], final_params(train_res),
+                  None), ref), None) + f"; {text}")
+
+    # --- fused resume to a third epoch = an uninterrupted 3-epoch run ----
+    res3, _, _, _ = dispatch_main_run(
+        train_cfg, "fused 3 epochs", {"training.epochs": 3,
+                                      "saving.saving_dir": str(tmp / "full3")},
+        None)
+    resumed = ({k: v for k, v in resumed_res["train_loss_dict"].items()},
+               *ckpt_state(fused_dir, 2))
+    full = ({k: v[2:] for k, v in res3["train_loss_dict"].items()},
+            *ckpt_state(tmp / "full3", 2))
+    print("dispatch: " + gate_runs(
+        "fused resume (2 epochs + 1) vs uninterrupted fused 3 epochs "
+        "(epoch 2's metrics, its checkpoint's parameters and optimizer "
+        "state)", run_diff(resumed, full, ref), None))
+
+    # --- one train step at 768x512 (the rfft2 path) captured -----------
+    cfg_l = large_config()
+    data_l = make_dataset(n_subjects=1, slices_per_subject=2, h=768, w=512,
+                          n_frames=8, seed=8)
+    batch = next(iter(Batcher(JointDataset(
+        data_l, dataset_config=cfg_l["datasets"]["train"]), 2)))
+    eager, graphed = dispatch_engine(cfg_l, 7), dispatch_engine(cfg_l, 7)
+    ref_l = {n: {k: v.detach().cpu().clone()
+                 for k, v in m.state_dict().items()}
+             for n, m in eager.modules.items()}
+    arrays, static = eager.to_device(batch), graphed.to_device(batch)
+    g = StepGraph(lambda: graphed._update(static), torch.device("cuda"))
+    losses_e, losses_g = [], []
+    for _ in range(3):        # eager warm-up, capture + replay, replay
+        losses_e.append(eager.train_step(arrays)["total_loss"].item())
+        losses_g.append(g()["total_loss"].item())
+        graphed._schedules_step()
+    torch.cuda.synchronize()
+    require(g.graph is not None and g.replays == 2,
+            "large: the second and third steps were not replays")
+
+    def large_run(engine, losses):
+        return ({"train/total_loss": losses, "val/total_loss": []},
+                {n: m.state_dict() for n, m in engine.modules.items()},
+                {n: opt.state_dict()["state"]
+                 for n, (opt, _) in engine.optimizers.items()})
+    print("dispatch: " + gate_runs(
+        "768x512 train step captured (warm-up, then capture and replay, "
+        "replay) vs 3 eager steps (loss values, parameters, optimizer "
+        "state)", run_diff(large_run(graphed, losses_g),
+                           large_run(eager, losses_e), ref_l), None))
+    del eager, graphed, g, arrays, static
+
+    # --- PrefetchBatcher: the host batches, on the card ------------------
+    print("dispatch: " + check_prefetch(train_cfg))
+
+    # --- eval_pipeline: the same predictions ---------------------------
+    cfg_s, engine, dataset = build_slice()
+    outs = [engine.test({}, {"test": dataset}, trainer_config=dict(
+        cfg_s["training"], eval_pipeline=p)) for p in (True, False)]
+    (pa, fa, _), (pb, fb, _) = outs
+    same = len(pa) == len(pb) == len(dataset) and all(
+        a.keys() == b.keys() and all(
+            torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+            if hasattr(a[k], "shape") else a[k] == b[k] for k in a)
+        for a, b in zip(pa, pb))
+    require(same and fa == fb, "eval_pipeline: predictions differ")
+    print(f"dispatch: engine.test with eval_pipeline on and off: "
+          f"{len(pa)} slices' predictions torch.equal, metrics equal")
+
+    return pipe_launches
+
+
+def dispatch_walls(tmp: Path, card: str, train_cfg, train_launches):
+    """The 2-epoch ``main.run`` of the train phase, outside the
+    deterministic mode, in turns step loop, fused, pipelined, pipelined,
+    fused, step loop (``training.host_profile``): each epoch's host wall
+    and the checkpoint's share of it, the pipelined cadence, and each
+    run's host seconds."""
+    modes = {"step loop": {"training.epoch_fuse": False,
+                           "training.device_data_cache": False},
+             "fused": {},
+             "pipelined": {"saving.save_checkpoint": False}}
+    walls = {m: [] for m in modes}
+    for i, mode in enumerate(("step loop", "fused", "pipelined", "pipelined",
+                              "fused", "step loop")):
+        _, watch, secs, _ = dispatch_main_run(
+            train_cfg, f"walls {mode}", {
+                **modes[mode], "training.host_profile": True,
+                "saving.saving_dir": str(tmp / f"walls{i}")}, train_launches)
+        walls[mode].append(
+            f"{epoch_walls(watch, pipelined=mode == 'pipelined')} in "
+            f"{secs:.3f} s")
+    print(f"dispatch: epoch wall of the 2-epoch main.run (host_profile "
+          f"total, checkpoint share; pipelined: the cadence; {card}; turns "
+          f"loop, fused, pipelined, pipelined, fused, loop; fused epoch 0 "
+          f"warms up and captures): " + "; ".join(
+              f"{m} {', '.join(w)}" for m, w in walls.items()))
+
+
+def run_dispatch_times(card: str, profile_dir=None):
+    """Graph vs step loop in turns, on fresh engines, after the earlier
+    phases' graphs are released: the flagship train and eval steps and the
+    reg train step (with ``profile_dir``, each mode's profiler table)."""
+    from cardiax_torch.data.datasets import (BasicRegistrationDataset,
+                                             JointDataset)
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.synthetic import (make_dataset,
+                                              make_registration_pairs)
+    from cardiax_torch.train.graphs import StepGraph
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_s, engine, dataset = build_slice()
+    t_myo = int(cfg_s["datasets"]["test"]["n_myo_frames_to_use_for_regression"])
+    train_ds = JointDataset(make_dataset(
+        n_subjects=10, slices_per_subject=3, h=128, w=128, n_frames=t_myo,
+        seed=11), dataset_config=cfg_s["datasets"]["train"])
+    times = {"train": graph_vs_loop_train(
+        "flagship train step", cfg_s, train_ds, t_myo - 1, card,
+        "batch 10 at 128^2, T=20", profile_dir)}
+    arrays = engine.to_device(next(iter(Batcher(dataset, 10))))
+    static = {k: v.clone() for k, v in arrays.items()}
+    g_eval = StepGraph(lambda: engine.eval_step(static), torch.device("cuda"))
+    times["eval"] = turns_line("flagship eval step",
+                               (lambda: engine.eval_step(arrays), 1),
+                               (g_eval, 1), card, "batch 10 at 128^2",
+                               profile_dir)
+    cfg_r = json.loads((ROOT / "configs" / "reg.json").read_text())
+    pairs = make_registration_pairs(make_dataset(
+        n_subjects=2, slices_per_subject=1, h=128, w=128, n_frames=20,
+        seed=9))[:30]
+    times["reg"] = graph_vs_loop_train(
+        "reg train step", cfg_r, BasicRegistrationDataset(
+            pairs, dataset_config=cfg_r["datasets"]["train"]), None, card,
+        "batch 10 pairs at 128^2", profile_dir)
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="directory for profiler tables of the eval, train, "
                          "large train, fused-solve train, reg train and "
-                         "regression train steps")
+                         "regression train steps, and of the dispatch "
+                         "phase's loop and graph steps")
     ap.add_argument("--baseline", default=None,
                     help="a checkout of an earlier commit whose kernels "
                          "take the same C arguments: each kernel alone is "
@@ -1985,7 +2656,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
-    from cardiax_torch.device import set_numerics
+    from cardiax_torch.device import deterministic, set_numerics
     set_numerics()
     dev = torch.device("cuda")
     card = phase_build()
@@ -2002,8 +2673,16 @@ def main(argv=None) -> int:
     kernels += check_solve_all(dev)
     paths = {"eval": run_slice(args.profile)}
     with tempfile.TemporaryDirectory() as tmp:
-        paths["train"], cfg_train, _ = run_train(Path(tmp))
-        run_resume(cfg_train)
+        # the train, resume and dispatch phases compare runs bit for bit
+        with deterministic():
+            paths["train"], cfg_train, res_train = run_train(Path(tmp))
+            res_resumed = run_resume(cfg_train)
+            paths["dispatch"] = run_dispatch(
+                Path(tmp), card, cfg_train, res_train, res_resumed,
+                paths["train"])
+            del res_train, res_resumed
+        dispatch_walls(Path(tmp), card, cfg_train, paths["train"])
+    run_dispatch_times(card, args.profile)
     run_train_step(args.profile)
     paths["ops"] = run_ops()
     with tempfile.TemporaryDirectory() as tmp:

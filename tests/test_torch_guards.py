@@ -182,3 +182,34 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["mc_warp"])
+
+
+def test_every_kernel_wrapper_counts_into_the_registry():
+    """Each kernel wrapper adds one to its kernel's count in
+    ``ops.counters``, once, under a name the registry holds; every name
+    there is counted by a wrapper; and a snapshot's difference added back
+    ``times`` times moves every count by that multiple (the bookkeeping of
+    a CUDA graph's replays)."""
+    import inspect
+    import re
+
+    from cardiax_torch.ops import counters
+    names = [n for mod in (warp_kernels, epdiff_kernels)
+             for n in re.findall(r'counters\.count\("(\w+)"\)',
+                                 inspect.getsource(mod))]
+    assert sorted(names) == sorted(counters.KERNELS)
+    saved = counters.snapshot()
+    try:
+        counters.reset()
+        counters.count("mc_warp_fwd")
+        counters.count("epdiff_step_fwd")
+        counters.count("epdiff_step_fwd")
+        delta = counters.snapshot()
+        counters.add(delta, 3)
+        assert counters.launches == {**dict.fromkeys(counters.KERNELS, 0),
+                                     "mc_warp_fwd": 4, "epdiff_step_fwd": 8}
+        counters.add(delta, -4)
+        assert set(counters.launches.values()) == {0}
+    finally:
+        counters.launches.update(saved)
+

@@ -19,8 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from cardiax_torch.ops import epdiff_kernels, shooting, warp_kernels
+from cardiax_torch.device import deterministic
+from cardiax_torch.ops import (counters, epdiff_kernels, shooting,
+                               warp_kernels)
 from cardiax_torch.ops.fluid_metric import _helmholtz_mm_weights
+
+LAUNCHES = counters.launches     # by kernel name
 
 pytestmark = pytest.mark.gpu
 
@@ -50,12 +54,12 @@ def test_mc_warp_kernel_matches_plain(cuda, channels):
     img = _smooth(gen, (6, channels, 40, 36), 3.0, cuda)
     disp = _smooth(gen, (6, 2, 40, 36), 15.0, cuda)
     assert (disp.abs() > 11).any()
-    before = warp_kernels.launches
+    before = LAUNCHES["mc_warp_fwd"]
     with torch.inference_mode():
         out = warp_kernels.bilinear_warp_banded_multi(img, disp, radius=12)
         ref = warp_kernels._mc_warp_plain(img, disp, 12)
     torch.cuda.synchronize()
-    assert warp_kernels.launches == before + 1
+    assert LAUNCHES["mc_warp_fwd"] == before + 1
     _close(out, ref)
 
 
@@ -65,12 +69,12 @@ def test_epdiff_step_kernel_matches_plain(cuda):
     m = _smooth(gen, (5, 2, 24, 20), 3.0, cuda)
     u = _smooth(gen, (5, 2, 24, 20), 2.0, cuda)
     assert (0.2 * v.abs() > 1).any()
-    before = epdiff_kernels.launches
+    before = LAUNCHES["epdiff_step_fwd"]
     with torch.inference_mode():
         mk, uk = epdiff_kernels.epdiff_step(v, m, u, 0.2, 2)
         mr, ur = epdiff_kernels._epdiff_step_plain(v, m, u, 0.2, 2)
     torch.cuda.synchronize()
-    assert epdiff_kernels.launches == before + 1
+    assert LAUNCHES["epdiff_step_fwd"] == before + 1
     _close(mk, mr)
     _close(uk, ur)
     assert np.isfinite(uk.cpu().numpy()).all()
@@ -82,11 +86,11 @@ def test_mc_warp_disp_bwd_kernel_matches_plain(cuda):
     disp = _smooth(gen, (6, 2, 40, 36), 15.0, cuda)
     g = torch.randn((6, 2, 40, 36), generator=gen).to(cuda)
     assert (disp.abs() > 11).any()
-    before = warp_kernels.bwd_launches
+    before = LAUNCHES["mc_warp_disp_bwd"]
     out = warp_kernels.mc_warp_disp_bwd(img, disp, g, 12)
     ref = warp_kernels._mc_warp_disp_bwd_plain(img, disp, g, 12)
     torch.cuda.synchronize()
-    assert warp_kernels.bwd_launches == before + 1
+    assert LAUNCHES["mc_warp_disp_bwd"] == before + 1
     _close(out, ref)
 
 
@@ -97,13 +101,13 @@ def test_mc_warp_fused_bwd_kernel_matches_plain(cuda, radius):
     disp = _smooth(gen, (6, 2, 40, 36), 15.0, cuda)
     g = torch.randn((6, 2, 40, 36), generator=gen).to(cuda)
     assert (disp.abs() > radius - 1).any()
-    before = warp_kernels.fused_bwd_launches
+    before = LAUNCHES["mc_warp_fused_bwd"]
     outs = warp_kernels.mc_warp_fused_bwd(img, disp, g, radius)
     refs = warp_kernels._mc_warp_fused_bwd_plain(img, disp, g, radius)
     gf, gd = warp_kernels.mc_warp_fused_bwd(img, disp, g, radius,
                                             with_disp=False)
     torch.cuda.synchronize()
-    assert warp_kernels.fused_bwd_launches == before + 2 and gd is None
+    assert LAUNCHES["mc_warp_fused_bwd"] == before + 2 and gd is None
     for out, ref in zip(outs + (gf,), refs + refs[:1]):
         _close(out, ref)
     # autograd of the warp with both inputs needing their gradient
@@ -169,12 +173,12 @@ def test_mc_warp_fused_bwd_kernel_hard_cases(cuda, kind, channels):
     field, disp, g, radius = (torch.from_numpy(a).to(cuda) if not
                               isinstance(a, int) else a
                               for a in k5_case(kind, channels))
-    before = warp_kernels.fused_bwd_launches
+    before = LAUNCHES["mc_warp_fused_bwd"]
     outs = warp_kernels.mc_warp_fused_bwd(field, disp, g, radius)
     again = warp_kernels.mc_warp_fused_bwd(field, disp, g, radius)
     refs = warp_kernels._mc_warp_fused_bwd_plain(field, disp, g, radius)
     torch.cuda.synchronize()
-    assert warp_kernels.fused_bwd_launches == before + 2
+    assert LAUNCHES["mc_warp_fused_bwd"] == before + 2
     for out, rep, ref in zip(outs, again, refs):
         assert torch.equal(out, rep)
         _close(out, ref)
@@ -188,11 +192,11 @@ def test_epdiff_step_bwd_kernel_matches_plain(cuda):
     gm = torch.randn((5, 2, 24, 20), generator=gen).to(cuda)
     gu = torch.randn((5, 2, 24, 20), generator=gen).to(cuda)
     assert (0.2 * v.abs() > 1).any()
-    before = epdiff_kernels.bwd_launches
+    before = LAUNCHES["epdiff_step_bwd"]
     outs = epdiff_kernels.epdiff_step_bwd(v, m, u, gm, gu, 0.2, 2)
     refs = epdiff_kernels._epdiff_step_bwd_plain(v, m, u, gm, gu, 0.2, 2)
     torch.cuda.synchronize()
-    assert epdiff_kernels.bwd_launches == before + 1
+    assert LAUNCHES["epdiff_step_bwd"] == before + 1
     for out, ref in zip(outs, refs):
         _close(out, ref)
 
@@ -259,13 +263,13 @@ def test_autograd_backward_launches_the_kernels(cuda):
     m = _smooth(gen, (3, 2, 16, 16), 2.0, cuda).requires_grad_()
     u = torch.zeros((3, 2, 16, 16), device=cuda)
     img = _smooth(gen, (3, 1, 16, 16), 1.0, cuda)
-    before = (epdiff_kernels.bwd_launches, warp_kernels.bwd_launches)
+    before = (LAUNCHES["epdiff_step_bwd"], LAUNCHES["mc_warp_disp_bwd"])
     m1, u1 = epdiff_kernels.epdiff_step(v, m, u, 0.2, 2)
     out = warp_kernels.bilinear_warp_banded_multi(img, u1 * 4.0, radius=12,
                                                   img_const=True)
     gv, gm = torch.autograd.grad(out.sum() + m1.sum(), (v, m))
     torch.cuda.synchronize()
-    assert (epdiff_kernels.bwd_launches, warp_kernels.bwd_launches) \
+    assert (LAUNCHES["epdiff_step_bwd"], LAUNCHES["mc_warp_disp_bwd"]) \
         == (before[0] + 1, before[1] + 1)
     # the same graph through the plain versions on the card
     v2, m2 = v.detach().clone().requires_grad_(), m.detach().clone().requires_grad_()
@@ -306,8 +310,8 @@ def test_epdiff_step_solve_kernels_match_plain(cuda, shape, radius):
     runtime radius (3); two launches give the same bits."""
     gen = torch.Generator().manual_seed(12)
     m, u, gm, gu, ops = _solve_inputs(gen, shape, cuda)
-    before = (epdiff_kernels.solve_launches,
-              epdiff_kernels.solve_bwd_launches)
+    before = (LAUNCHES["epdiff_step_solve_fwd"],
+              LAUNCHES["epdiff_step_solve_bwd"])
     with torch.inference_mode():
         outs, again = (epdiff_kernels.epdiff_step_solve(
             m, u, 0.2, radius, 0.5, 1.0, 2) for _ in range(2))
@@ -318,8 +322,8 @@ def test_epdiff_step_solve_kernels_match_plain(cuda, shape, radius):
     grefs = epdiff_kernels._epdiff_step_solve_bwd_plain(m, u, *ops, gm, gu,
                                                         0.2, radius)
     torch.cuda.synchronize()
-    assert (epdiff_kernels.solve_launches,
-            epdiff_kernels.solve_bwd_launches) == (before[0] + 2,
+    assert (LAUNCHES["epdiff_step_solve_fwd"],
+            LAUNCHES["epdiff_step_solve_bwd"]) == (before[0] + 2,
                                                    before[1] + 2)
     for out, rep, ref in zip(outs + gouts, again + gagain, refs + grefs):
         assert torch.equal(out, rep)
@@ -341,11 +345,11 @@ def test_epdiff_step_solve_backward_launches_k7_once(cuda):
     gen = torch.Generator().manual_seed(13)
     m, u, gm, gu, ops = _solve_inputs(gen, (3, 2, 24, 20), cuda)
     m, u = m.requires_grad_(), u.requires_grad_()
-    before = epdiff_kernels.solve_bwd_launches
+    before = LAUNCHES["epdiff_step_solve_bwd"]
     mo, uo = epdiff_kernels.epdiff_step_solve(m, u, 0.2, 2, 0.5, 1.0, 2)
     got = torch.autograd.grad((mo * gm).sum() + (uo * gu).sum(), (m, u))
     torch.cuda.synchronize()
-    assert epdiff_kernels.solve_bwd_launches == before + 1
+    assert LAUNCHES["epdiff_step_solve_bwd"] == before + 1
     refs = epdiff_kernels._epdiff_step_solve_bwd_plain(
         m.detach(), u.detach(), *ops, gm, gu, 0.2, 2)
     for out, ref in zip(got, refs):
@@ -356,10 +360,137 @@ def test_expmap_shooting_fused_solve_launches_k6(cuda, monkeypatch):
     monkeypatch.setattr(shooting, "_FUSED_SOLVE", True)
     gen = torch.Generator().manual_seed(14)
     m0 = _smooth(gen, (3, 2, 32, 32), 20.0, cuda).contiguous()
-    before = (epdiff_kernels.solve_launches, epdiff_kernels.launches)
+    before = (LAUNCHES["epdiff_step_solve_fwd"], LAUNCHES["epdiff_step_fwd"])
     with torch.inference_mode():
         u, _ = shooting.expmap_shooting(m0, n_steps=3, warp_radius=8)
     torch.cuda.synchronize()
-    assert (epdiff_kernels.solve_launches, epdiff_kernels.launches) \
+    assert (LAUNCHES["epdiff_step_solve_fwd"], LAUNCHES["epdiff_step_fwd"]) \
         == (before[0] + 3, before[1])
     assert torch.isfinite(u).all()
+
+
+def test_train_step_graph_replay_matches_eager_step(cuda):
+    """The fused epoch on the card (``train.graphs``): the train step
+    warmed up, captured and replayed over a device-resident dataset gives
+    the step loop's loss values, parameters and optimizer state bit for bit
+    under PyTorch's deterministic mode (``device.deterministic``: cuDNN's
+    backward may otherwise sum in another order from run to run), and the
+    launch counters hold what the device ran (K2 n_steps x Euler steps a
+    batch, K1/K4 one a batch) though a replay runs no Python."""
+    import copy
+
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import DeviceBatcher
+    from cardiax_torch.data.synthetic import make_dataset
+    from cardiax_torch.models import build_model
+    from cardiax_torch.train import build_trainer
+    from cardiax_torch.train.graphs import EpochRunner
+    cfg = {
+        "networks": {
+            "joint_register_strainmat": {
+                "type": "JointRegisterStrainMatNet",
+                "strainmat_net_type": "ResNet3D", "n_strain_matrix_frames": 8,
+                "strainmat_smoothing_method": "SVD",
+                "strainmat_smoothing_SVD_rank": 5, "reg_features": 8,
+                "n_integration_steps": 2, "reg_half_res": False},
+            "LMA": {"type": "NetStrainMat2LMA", "num_conv_layers": 2,
+                    "inner_conv_channel_num": 8, "n_frames": 8}},
+        "training": {"scheme": "joint_registration_strainmat_LMA",
+                     "seed": 3, "optimizers": {
+                         n: {"type": "Adam", "learning_rate": 1e-3,
+                             "lr_scheduler": {"enable": True,
+                                              "type": "CosineAnnealingLR",
+                                              "T_max": 2, "eta_min": 1e-4}}
+                         for n in ("joint_register_strainmat", "LMA")}},
+        "losses": {"registration_reconstruction": {
+            "criterion": "registration_reconstruction",
+            "prediction": "various", "target": "registration_target",
+            "weight": 1.0, "sigma": 0.03, "regularization_weight": 0.1}},
+    }
+    ds = JointDataset(make_dataset(n_subjects=4, slices_per_subject=1, h=32,
+                                   w=32, n_frames=4, seed=1),
+                      dataset_config={"n_myo_frames_to_use_for_regression": 4,
+                                      "n_strainmat_frames_to_use_for_regression": 8})
+    nets = {n: build_model(mc, n_pairs=3) for n, mc in cfg["networks"].items()}
+    engines = []
+    for _ in range(2):
+        eng = build_trainer(cfg["training"], "cuda", cfg)
+        eng.setup(copy.deepcopy(nets), steps_per_epoch=2)
+        engines.append(eng)
+    graph_eng, loop_eng = engines
+    with deterministic():
+        loader = DeviceBatcher(ds, 2, shuffle=True, seed=3, device=cuda)
+        runner = EpochRunner(loader, graph_eng._update,
+                             after_step=graph_eng._schedules_step)
+        before = (LAUNCHES["epdiff_step_fwd"], LAUNCHES["mc_warp_fwd"],
+                  LAUNCHES["mc_warp_disp_bwd"])
+        graph_vals = []
+        for _ in range(3):    # warm-up step, capture, then replays only
+            idx, mask = loader.epoch_plan()
+            graph_vals.append(runner(idx, mask)[:, list(runner.keys).index(
+                "total_loss")].clone())
+        torch.cuda.synchronize()
+        assert runner.graph.graph is not None and runner.graph.replays == 5
+        assert (LAUNCHES["epdiff_step_fwd"] - before[0],
+                LAUNCHES["mc_warp_fwd"] - before[1],
+                LAUNCHES["mc_warp_disp_bwd"] - before[2]) == (6 * 2, 6, 6)
+        loop_vals, plan = [], DeviceBatcher(ds, 2, shuffle=True, seed=3,
+                                            device=cuda)
+        for _ in range(3):
+            loop_vals.append(torch.stack([
+                loop_eng.train_step(loop_eng.to_device(batch))["total_loss"]
+                for batch in plan]))
+    got, want = torch.cat(graph_vals), torch.cat(loop_vals)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got, want)
+    for name, module in graph_eng.modules.items():
+        ref = loop_eng.modules[name].state_dict()
+        for k, v in module.state_dict().items():
+            assert torch.equal(v, ref[k]), (name, k)
+        opt_g = graph_eng.optimizers[name][0].state_dict()
+        opt_l = loop_eng.optimizers[name][0].state_dict()
+        assert opt_g["state"].keys() == opt_l["state"].keys()
+        for i, slots in opt_g["state"].items():
+            for k, v in slots.items():
+                assert torch.equal(v, opt_l["state"][i][k]), (name, i, k)
+
+
+def test_prefetch_batcher_on_the_card_gives_the_host_batches(cuda):
+    """``PrefetchBatcher``'s CUDA path (pinned buffers, side-stream copies,
+    an event a batch): every numeric field on the card, equal to the host
+    loader's batch copied there; the non-numeric fields pass through; the
+    consumer's work on a batch sees its copy (a step that reads each batch
+    right away gives the host batches' sums); a worker error re-raises."""
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.prefetch import PrefetchBatcher
+    rng = np.random.default_rng(0)
+    items = [{"x": rng.standard_normal((64, 64)).astype(np.float32),
+              "k": np.full((2,), i, np.int64), "name": f"item{i}"}
+             for i in range(7)]
+    host = list(Batcher(items, 3, shuffle=True, seed=1))
+    got = list(PrefetchBatcher(Batcher(items, 3, shuffle=True, seed=1),
+                               cuda, depth=2))
+    assert len(got) == len(host) == 3
+    sums = []
+    for a, b in zip(got, host):
+        assert a.keys() == b.keys()
+        assert a["x"].is_cuda and a["k"].is_cuda
+        assert torch.equal(a["x"].cpu(), torch.from_numpy(b["x"]))
+        assert torch.equal(a["k"].cpu(), torch.from_numpy(b["k"]))
+        assert list(a["name"]) == list(b["name"])
+        sums.append(a["x"].double().sum())
+    torch.cuda.synchronize()
+    assert [float(x) for x in sums] == [float(b["x"].astype(np.float64)
+                                              .sum()) for b in host]
+
+    class Broken:
+        def __len__(self):
+            return 2
+
+        def __iter__(self):
+            yield host[0]
+            raise RuntimeError("worker failed")
+
+    with pytest.raises(RuntimeError, match="worker failed"):
+        list(PrefetchBatcher(Broken(), cuda))
+

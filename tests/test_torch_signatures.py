@@ -34,11 +34,15 @@ import cardiax_torch.models as tmodels
 import cardiax_torch.ops.fluid_metric as tfm
 import cardiax_torch.train.engine as tengine
 import cardiax.data.loader as jloader
+import cardiax.data.prefetch as jprefetch
+import cardiax.io.profiling as jprofiling
 import cardiax.losses.calculator as jcalc
 import cardiax.losses.metrics as jmetrics
 import cardiax.losses.registration as jreg_losses
 import cardiax.train as jtrain
 import cardiax_torch.data.loader as tloader
+import cardiax_torch.data.prefetch as tprefetch
+import cardiax_torch.io.profiling as tprofiling
 import cardiax_torch.losses.calculator as tcalc
 import cardiax_torch.losses.metrics as tmetrics
 import cardiax_torch.losses.registration as treg_losses
@@ -143,6 +147,20 @@ PAIRS = {
                       getattr(getattr(jloader, cls), m))
        for cls in ("Batcher", "SliceBatcher")
        for m in ("__init__", "set_epoch", "__iter__", "__len__")},
+    **{f"DeviceBatcher.{m}": (getattr(tloader.DeviceBatcher, m),
+                              getattr(jloader.DeviceBatcher, m))
+       for m in ("__init__", "epoch_plan", "set_epoch", "nbytes", "__iter__",
+                 "__len__")},
+    **{f"PrefetchBatcher.{m}": (getattr(tprefetch.PrefetchBatcher, m),
+                                getattr(jprefetch.PrefetchBatcher, m))
+       for m in ("__init__", "set_epoch", "__iter__", "__len__")},
+    **{f"profiling.{fn}": (getattr(tprofiling, fn), getattr(jprofiling, fn))
+       for fn in ("summarize_trace", "format_summary",
+                  "print_trace_summary")},
+    **{f"TrainerEngine.{m}": (getattr(tengine.TrainerEngine, m),
+                              getattr(jengine.TrainerEngine, m))
+       for m in ("_maybe_device_cache", "_build_epoch_fns",
+                 "_build_epoch_trainval_fn")},
     "NetStrainMat2LMA.__init__": (NetStrainMat2LMA.__init__,
                                   JaxNetStrainMat2LMA.__init__),
     "NetStrainMat2LMA.forward": (NetStrainMat2LMA.forward,
@@ -206,6 +224,18 @@ BY_DESIGN = {
         "torch modules hold their parameters and their train/eval mode")
        for cls in ("LMAScheme", "StrainMatPredScheme", "StrainMatLMAScheme",
                    "JointRegistrationRegressionScheme")},
+    "DeviceBatcher.__init__": (
+        {"mesh"}, {"device"},
+        "one card, no mesh: the stacked dataset goes to the given device"),
+    "PrefetchBatcher.__init__": (
+        {"mesh"}, {"device"},
+        "one card, no mesh: batches are copied to the given device"),
+    **{f"TrainerEngine.{m}": (
+        {"unroll_cap"}, set(),
+        "training.epoch_fuse_max_steps caps how far JAX unrolls its scan "
+        "of the step; the port replays one captured step a batch, so the "
+        "key has no effect")
+       for m in ("_build_epoch_fns", "_build_epoch_trainval_fn")},
     "NetStrainMat2LMA.__init__": (_FLAX, set(), "flax's module plumbing"),
     "NetDisplacement2LMA.__init__": (
         _FLAX, {"frame_size"},

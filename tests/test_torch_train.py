@@ -315,9 +315,13 @@ def test_three_step_trajectory_matches_jax(step_pair):
 def _tiny_setup(lr=1e-3, epochs=3, tolerance=50, n=5):
     cfg = _config(features=4)
     cfg["networks"]["joint_register_strainmat"]["reg_half_res"] = False
+    # no epoch pipelining: _RecordingTracker reads the modules when an
+    # epoch's metrics are logged, which a pipelined run does while the
+    # next epoch's steps hold them
     cfg["training"].update(epochs=epochs, seed=7,
                            epochs_without_improvement_tolerance=tolerance,
-                           optimizers=_optimizers(lr, lr))
+                           optimizers=_optimizers(lr, lr),
+                           epoch_pipeline=False)
     data = make_dataset(n_subjects=n, slices_per_subject=1, h=16, w=16,
                         n_frames=T_MYO, seed=8)
     datasets = {"train": JointDataset(data[:3], dataset_config=_data_cfg()),
