@@ -5,6 +5,7 @@ from cardiax_torch.config.config import (
     get_args,
     update_config_by_args,
     update_config_by_undefined_args,
+    update_config_by_another_config,
     coerce_str,
 )
 
@@ -13,5 +14,6 @@ __all__ = [
     "get_args",
     "update_config_by_args",
     "update_config_by_undefined_args",
+    "update_config_by_another_config",
     "coerce_str",
 ]

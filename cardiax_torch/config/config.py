@@ -270,6 +270,22 @@ def update_config_by_undefined_args(config: Dict[str, Any], undefined_args: List
     return config
 
 
+def update_config_by_another_config(config: Dict[str, Any], other: Dict[str, Any]) -> Dict[str, Any]:
+    """Recursive dict merge — sweep-parameter injection
+    (reference: modules/config/config.py:223-234)."""
+    config = copy.deepcopy(config)
+
+    def merge(dst, src):
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                merge(dst[k], v)
+            else:
+                dst[k] = copy.deepcopy(v)
+
+    merge(config, other)
+    return config
+
+
 def load_config_from_json(path: str | Path) -> Dict[str, Any]:
     """Load the experiment config (reference: modules/config/config.py:236-241)."""
     with open(path) as f:

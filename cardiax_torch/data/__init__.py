@@ -1,22 +1,33 @@
-"""Data ingest: npy list-of-dicts -> per-slice feed dicts (numpy only).
+"""Data ingest: npy list-of-dicts -> per-slice feed dicts (host side, numpy).
 
 Copy of ``cardiax/data/__init__.py`` (``get_data_from_slice``,
-``load_data``). Input contract: a .npy file holding a list of dicts, one per
-2D cine slice, with at least ``cine_lv_myo_masks (H,W,T)``,
-``strain_matrix (126,T)``, ``TOS (126,)`` and ``subject_id``; nested
-clinical dicts (``TOSAnalysis``/``StrainInfo``) are understood too.
-Augmentation and the image preprocessing chain are not ported yet and raise.
-The rest of the package: ``synthetic`` (slices in this contract and a CLI
-that writes them), ``split``, ``datasets`` and ``loader``.
+``load_data``, ``split_vol_to_registration_pairs``). Input contract: a .npy
+file holding a list of dicts, one per 2D cine slice, with at least
+``cine_lv_myo_masks (H,W,T)``, ``strain_matrix (126,T)``, ``TOS (126,)``
+and ``subject_id``; nested clinical dicts (``TOSAnalysis``/``StrainInfo``)
+are understood too. ``load_data`` augments (``augmentation``) and runs the
+preprocessing chain mask-out -> crop to the myocardium -> resize
+(``datareader``). The rest of the package: ``synthetic`` (slices in this
+contract and a CLI that writes them), ``split``, ``datasets``, ``loader``
+and ``prefetch``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["get_data_from_slice", "load_data"]
+from cardiax_torch.data.augmentation import augment_all_data
+from cardiax_torch.data.datasets import align_n_frames_to
+
+__all__ = [
+    "get_data_from_slice",
+    "load_data",
+    "split_vol_to_registration_pairs",
+    "align_n_frames_to",
+    "augment_all_data",
+]
 
 
 def get_data_from_slice(datum: Dict[str, Any],
@@ -65,22 +76,9 @@ def get_data_from_slice(datum: Dict[str, Any],
 
 def load_data(data_config: Dict[str, Any],
               full_config: Dict[str, Any] | None = None) -> List[Dict[str, Any]]:
-    """Load slices, mark originals, truncate to ``n_read``, and extract the
-    ``data_to_feed`` keys plus ids (``cardiax/data/__init__.py:load_data``
-    without augmentation or the image preprocessing chain, which raise)."""
-    if any(data_config.get(k, 0) for k in ("augment_translate_times_y",
-                                           "augment_translate_times_x",
-                                           "augment_rotate_times")):
-        raise NotImplementedError(
-            "data augmentation (cardiax/data/augmentation.py) is not ported "
-            "yet (ROADMAP A1); set data.augment_*_times to 0")
-
-    for key in ("mask_out", "crop_to_myocardium_size", "resize"):
-        val = data_config.get(key, False)
-        if val and str(val).lower() not in ("false", "f"):
-            raise NotImplementedError(
-                f"data.{key}: the image preprocessing of "
-                f"cardiax/data/datareader.py is not ported yet (ROADMAP A1)")
+    """Load slices, mark originals, truncate to ``n_read``, augment, and
+    extract the ``data_to_feed`` keys plus ids, then mask out, crop and
+    resize (``cardiax/data/__init__.py:load_data``)."""
     npy_filename = data_config["npy_filename"]
     slices = np.load(npy_filename, allow_pickle=True).tolist()
     for datum in slices:
@@ -89,6 +87,8 @@ def load_data(data_config: Dict[str, Any],
     n_read = data_config.get("n_read", -1)
     if n_read is not None and n_read != -1:
         slices = slices[:n_read]
+
+    slices = slices + augment_all_data(slices, data_config)
 
     data_to_feed = data_config.get("data_to_feed",
                                    [{"key": "LMA_label", "LMA_threshold": 25}])
@@ -105,4 +105,47 @@ def load_data(data_config: Dict[str, Any],
                 loaded[meta] = datum[meta]
         loaded_list.append(loaded)
 
+    # preprocessing chain (reference `preprocessing` inserts, config.py:93-118)
+    from cardiax_torch.data.datareader import (_crop_to_myocardium,
+                                               _mask_out_images,
+                                               _resize_slice_images)
+    mask_out = data_config.get("mask_out", False)
+    if mask_out and str(mask_out).lower() not in ("false", "f"):
+        loaded_list = _mask_out_images(loaded_list)
+    if data_config.get("crop_to_myocardium_size"):
+        loaded_list = _crop_to_myocardium(
+            loaded_list, data_config["crop_to_myocardium_size"])
+    if data_config.get("resize", False):
+        loaded_list = _resize_slice_images(
+            loaded_list, data_config.get("resize_size", 128))
     return loaded_list
+
+
+def split_vol_to_registration_pairs(vol, split_method: str = "Lagrangian",
+                                    output_dim: int = 3) -> Tuple[Any, Any]:
+    """Split a (B, C, T, H, W) mask volume, a numpy array or a tensor, into
+    (src, tar) registration pairs (reference modules/data/__init__.py:93-121).
+
+      * ``Lagrangian``: src = frame 0 broadcast over T-1, tar = frames 1..T-1;
+      * ``Eulerian``:   adjacent-frame pairs.
+
+    ``output_dim=2`` flattens to (B*(T-1), C, H, W); ``output_dim=3`` keeps
+    the pair axis separate.
+    """
+    b, c, t, h, w = vol.shape
+    if t <= 1:
+        raise ValueError(f"n_frames must be > 1, got {t}")
+    if split_method == "Lagrangian":
+        src = np.broadcast_to(vol[:, :, :1], (b, c, t - 1, h, w)) \
+            if isinstance(vol, np.ndarray) \
+            else vol[:, :, :1].expand(b, c, t - 1, h, w)
+        tar = vol[:, :, 1:]
+    elif split_method == "Eulerian":
+        src = vol[:, :, :-1]
+        tar = vol[:, :, 1:]
+    else:
+        raise ValueError(f"Unrecognized split_method: {split_method}")
+    if output_dim == 2:
+        src = src.reshape(b * (t - 1), c, h, w)
+        tar = tar.reshape(b * (t - 1), c, h, w)
+    return src, tar

@@ -15,7 +15,8 @@ configured counts:
     optional masks, DENSE displacements and labels.
 
 Float fields are f32, labels int64; every item carries the slice's
-non-array metadata. The LMA labels default to TOS > ``LMA_threshold`` of
+non-array metadata. ``augmentation`` is taken and not read, as in JAX:
+``load_data`` augments. The LMA labels default to TOS > ``LMA_threshold`` of
 the dataset config (25). Each dataset groups its items by
 ``slice_full_id`` (``get_slice``), which ``loader.SliceBatcher`` batches.
 """
@@ -104,12 +105,6 @@ class SliceGroupedDataset:
         raise NotImplementedError
 
 
-def _no_augmentation(cls: str, augmentation) -> None:
-    if augmentation:
-        raise NotImplementedError(
-            f"{cls}: augmentation is not ported yet (ROADMAP A1); pass None")
-
-
 def _lma_labels(raw: Dict[str, Any], datum: Dict[str, Any],
                 threshold) -> None:
     """The item's sector labels (TOS > threshold unless given) and slice
@@ -130,7 +125,6 @@ class JointDataset(SliceGroupedDataset):
                  dataset_config: Dict[str, Any] | None = None,
                  full_config: Dict[str, Any] | None = None,
                  dataset_name: str | None = None):
-        _no_augmentation("JointDataset", augmentation)
         super().__init__(data, dataset_config, full_config, dataset_name)
         cfg = self.dataset_config
         self.n_myo_frames = int(cfg.get("n_myo_frames_to_use_for_regression", 20))
@@ -163,7 +157,6 @@ class _FramesDataset(SliceGroupedDataset):
                  dataset_config: Dict[str, Any] | None = None,
                  full_config: Dict[str, Any] | None = None,
                  dataset_name: str | None = None):
-        _no_augmentation(type(self).__name__, augmentation)
         super().__init__(data, dataset_config, full_config, dataset_name)
         self.n_frames = int(self.dataset_config.get(
             "n_frames_to_use_for_regression", 48))

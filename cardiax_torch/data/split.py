@@ -1,7 +1,7 @@
 """Dataset splitting: regex patterns and ratio/count splits (numpy only).
 
-Copy of ``cardiax/data/split.py`` (``split_data`` and its three methods;
-the k-fold ``SplitManager`` comes with ``kfold.py``, ROADMAP A9). The match
+Copy of ``cardiax/data/split.py`` (``split_data`` and its three methods,
+and the k-fold ``SplitManager`` that ``cardiax_torch.kfold`` drives). The match
 key is the slice's ``full_name`` or ``slice_full_id`` (else ``subject_id``).
 """
 
@@ -136,3 +136,47 @@ def split_data(all_data: List[Dict[str, Any]],
                 d["idx_in_dataset"] = i
             splits[split_name]["data"] = kept
     return splits
+
+
+class SplitManager:
+    """K-fold cross-validation splits (reference data_split.py:193-325).
+
+    Given ``folds`` — lists of subject regexes — fold ``i`` uses fold ``i`` as
+    test, fold ``(i+1) % k`` as val, and the rest as train. Iterating yields
+    per-fold split configs consumable by `split_data`.
+    """
+
+    def __init__(self, folds: Sequence[Sequence[str]],
+                 base_split_config: Dict[str, Any] | None = None):
+        if len(folds) < 2:
+            raise ValueError("k-fold CV needs >= 2 folds")
+        self.folds = [list(f) for f in folds]
+        self.base = copy.deepcopy(base_split_config or {})
+
+    def __len__(self) -> int:
+        return len(self.folds)
+
+    def __getitem__(self, fold_idx: int) -> Dict[str, Any]:
+        k = len(self.folds)
+        if not 0 <= fold_idx < k:
+            raise IndexError(fold_idx)
+        test_pats = self.folds[fold_idx]
+        val_pats = self.folds[(fold_idx + 1) % k]
+        cfg = copy.deepcopy(self.base)
+        cfg["method"] = "by_pattern"
+        cfg["splits"] = {
+            "train": {"role": "train", "patterns": [".*"],
+                      "exclude_patterns": list(test_pats) + list(val_pats),
+                      "keep_augmented": True},
+            "val": {"role": "val", "patterns": list(val_pats),
+                    "keep_augmented": cfg.get("val_keep_augmented", False)},
+            "test": {"role": "test", "patterns": list(test_pats),
+                     "keep_augmented": cfg.get("test_keep_augmented", False)},
+        }
+        cfg["fold_idx"] = fold_idx
+        cfg["metric_prefix"] = f"fold{fold_idx}/"
+        return cfg
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]

@@ -101,9 +101,12 @@ def strain_head_state_dict(p: Dict[str, Any],
 
 
 def joint_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``JointRegisterStrainMatNet`` params -> its port's state_dict."""
-    return {**unet_state_dict(p["momentum_unet"], "momentum_unet."),
-            **strain_head_state_dict(p["strain_head"], "strain_head.")}
+    """``JointRegisterStrainMatNet`` params -> its port's state_dict (the
+    analytic strain path has no ``strain_head``)."""
+    out = unet_state_dict(p["momentum_unet"], "momentum_unet.")
+    if "strain_head" in p:
+        out.update(strain_head_state_dict(p["strain_head"], "strain_head."))
+    return out
 
 
 def registration_state_dict(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -93,3 +93,28 @@ class LossCalculator:
             total = torch.zeros((), dtype=torch.float32)
         values["total_loss"] = total
         return total, values
+
+
+class HardCodedLossCalculator:
+    """The fixed three-loss calculator (reference
+    modules/loss/loss_calculator_hardcoded.py:3-19): LDDMM reconstruction +
+    strain-matrix MSE + TOS MSE with fixed weights, no config plumbing."""
+
+    def __init__(self, sigma: float = 0.03, regularization_weight: float = 0.1,
+                 strainmat_weight: float = 1000.0, tos_weight: float = 0.005):
+        self._calc = LossCalculator({
+            "registration_reconstruction": {
+                "criterion": "registration_reconstruction",
+                "prediction": "various", "target": "registration_target",
+                "weight": 1.0, "sigma": sigma,
+                "regularization_weight": regularization_weight, "enable": True},
+            "registration_supervision": {
+                "criterion": "MSELoss", "prediction": "strainmat",
+                "target": "strainmat", "weight": strainmat_weight, "enable": True},
+            "TOS_regression": {
+                "criterion": "MSELoss", "prediction": "TOS", "target": "TOS",
+                "weight": tos_weight, "enable": True},
+        })
+
+    def __call__(self, outputs, targets):
+        return self._calc(outputs, targets)

@@ -3,12 +3,14 @@
 Copies of ``cardiax/losses/metrics.py``: ``tos_sector_error`` (the headline
 metric, on tensors), ``classification_metrics`` (the LMA classification
 tasks) and the host-side ``binary_auc`` and ``threshold_sweep_f1`` (the LMA
-metrics of the flagship scheme).
+metrics of the flagship scheme), and ``get_average_performance_dict``
+(the k-fold average).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,3 +90,17 @@ def threshold_sweep_f1(scores: np.ndarray, labels: np.ndarray,
         if f1 > best_f1:
             best_f1, best_t = f1, float(t)
     return best_f1, best_t
+
+
+_FOLD_RE = re.compile(r"^fold\d+/")
+
+
+def get_average_performance_dict(performance_dicts: Sequence[Dict[str, float]]
+                                 ) -> Dict[str, float]:
+    """Cross-fold metric averaging (reference loss/__init__.py:5-55)."""
+    grouped: Dict[str, List[float]] = {}
+    for d in performance_dicts:
+        for key, val in d.items():
+            base = _FOLD_RE.sub("", key)
+            grouped.setdefault(base, []).append(float(val))
+    return {f"average/{k}": float(np.mean(v)) for k, v in grouped.items()}

@@ -142,13 +142,14 @@ def _build_strainmat(cfg: Dict[str, Any], n_pairs: Optional[int],
 def _build_joint_register_strainmat(cfg: Dict[str, Any],
                                     n_pairs: Optional[int],
                                     frame_size) -> ModelBundle:
-    if n_pairs is None:
+    analytic = cfg.get("strainmat_net_type", "ResNet3D") == "analytic"
+    if n_pairs is None and not analytic:
         raise ValueError("JointRegisterStrainMatNet needs n_pairs (frames "
                          "per slice - 1) to size its strain head")
     if cfg.get("channel_pack"):
         raise NotImplementedError("channel_pack is a TPU layout; not ported")
     module = JointRegisterStrainMatNet(
-        n_pairs=int(n_pairs),
+        n_pairs=None if n_pairs is None else int(n_pairs),
         strainmat_net_type=cfg.get("strainmat_net_type", "ResNet3D"),
         n_strain_matrix_frames=int(cfg.get("n_strain_matrix_frames", 40)),
         strainmat_smoothing_method=cfg.get("strainmat_smoothing_method", "SVD"),

@@ -199,13 +199,16 @@ class TrainerEngine:
                 RuntimeWarning)
 
     # ---- setup ------------------------------------------------------------ #
-    def setup(self, models: Dict[str, Any],
-              state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-              steps_per_epoch: int = 1, seed: Optional[int] = None) -> None:
+    def setup(self, models: Dict[str, Any], example_batch: Any,
+              steps_per_epoch: int, seed: Optional[int] = None, *,
+              state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+              ) -> None:
         """Take the scheme's ``ModelBundle``s: load ``state_dicts`` into them
         when given, else draw the weights of every bundle that has none from
-        ``seed`` (default ``training.seed``); move them to the engine's
-        device and build each configured model's optimizer."""
+        ``seed`` (default ``training.seed``, 2434); move them to the engine's
+        device and build each configured model's optimizer. JAX's
+        ``example_batch`` is taken and not read: torch modules are built
+        with their shapes."""
         if seed is None:
             seed = int(self.trainer_config.get("seed", 2434))
         gen = torch.Generator().manual_seed(int(seed))
@@ -454,7 +457,7 @@ class TrainerEngine:
                 use_wandb=use_wandb, use_tensorboard=use_tensorboard,
                 log_dir=saving.get("saving_dir"),
                 run_name=full.get("info", {}).get("experiment_name", "cardiax"))
-        self.setup(models, steps_per_epoch=len(train_loader), seed=seed)
+        self.setup(models, None, len(train_loader), seed=seed)
         self._runners = {}
 
         best_val = float("inf")
@@ -902,7 +905,7 @@ class TrainerEngine:
         cfg = trainer_config or self.trainer_config
         batch_size = int(cfg.get("batch_size", 10))
         if not self.modules:
-            self.setup(_bundles(models))
+            self.setup(_bundles(models), None, 1)
         loader = self.scheme.make_loader(datasets[target_dataset], batch_size,
                                          shuffle=False)
         preds: List[Dict[str, Any]] = []

@@ -109,13 +109,30 @@ prints no result without CUDA. Phases, one line each:
    slice batches of 4 slices x 19 pairs (76 items of 128^2) kernel vs
    plain, with its host and device time and peak device memory; the
    train step time of the other four configs;
-11. the kernel table as one JSON line, then the result line
+11. analytic: ``cardiax_torch.data.load_data`` with the preprocessing
+   chain and augmentation (160^2 synthetic slices, T=20, cropped to 144^2,
+   resized to 128^2, masked out, 2 rotated and translated variants a slice
+   through the native C++ engine, which must build; host time a slice),
+   then ``main.run`` on configs/joint.json with ``strainmat_net_type:
+   "analytic"`` for 2 epochs (train 36 slices, val 3, test 3) under JAX's
+   ``auto`` dispatch: finite losses each epoch, exact K1-K4 launches under
+   replay, 128^2 frames resident; one analytic train step kernel vs plain;
+   the strain op on that step's displacements in f32 on the card against
+   float64 (1e-5 of the range; arctan2 ties reported apart); the analytic
+   and the ResNet3D train steps, loop and graph, in turns (host, device,
+   peak memory);
+12. kfold: ``cardiax_torch.kfold.run_kfold`` on configs/joint.json
+   (ResNet3D) over 2 folds of synthetic subjects at 1 epoch each: finite
+   ``fold{i}/`` metrics and their average, each fold's exact K1-K4
+   launches;
+13. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
 train steps to ``DIR/eval_profile.txt``, ``DIR/train_profile.txt``,
 ``DIR/large_train_profile.txt``, ``DIR/solve_train_profile.txt``,
-``DIR/reg_train_profile.txt`` and ``DIR/regression_train_profile.txt``,
+``DIR/reg_train_profile.txt``, ``DIR/regression_train_profile.txt`` and
+``DIR/analytic_train_profile.txt`` (the analytic step, eager),
 and of the dispatch phase's timed steps, each mode apart, to
 ``DIR/dispatch_<step>_{loop,graph}_profile.txt``.
 ``--baseline DIR`` builds the kernels of DIR (a checkout of an earlier
@@ -974,7 +991,7 @@ def build_slice(seed: int = 0):
                         n_frames=t_myo, seed=seed)
     dataset = JointDataset(data, dataset_config=ds_cfg)
     engine = build_trainer(cfg["training"], None, cfg)
-    engine.setup(nets)
+    engine.setup(nets, None, 1)
     return cfg, engine, dataset
 
 
@@ -1493,7 +1510,7 @@ def kernel_vs_plain_step(cfg, batch, label, n_pairs="flagship",
     def fresh_engine():
         engine = build_trainer(cfg["training"], None, cfg)
         engine.setup(random_nets(cfg, n_pairs, seed=1, frame_size=frame_size),
-                     steps_per_epoch=3)
+                     None, 3)
         return engine
 
     engine = fresh_engine()
@@ -1966,7 +1983,7 @@ def run_schemes(tmp: Path, card: str, profile_dir):
                             {"train": {"data": slices}}, c)["train"]
         bs = int(c["training"]["batch_size"])
         engine = build_trainer(c["training"], None, c)
-        engine.setup(random_nets(c, None, seed=1), steps_per_epoch=3)
+        engine.setup(random_nets(c, None, seed=1), None, 3)
         arrays = engine.to_device(next(iter(Batcher(ds, bs))))
         step_line(name, engine, arrays, f"{bs} slices", card)
     return launches
@@ -2347,7 +2364,7 @@ def dispatch_engine(cfg, n_pairs, seed=1, frame_size=None):
     from cardiax_torch.train import build_trainer
     engine = build_trainer(cfg["training"], None, cfg)
     engine.setup(random_nets(cfg, n_pairs, seed=seed, frame_size=frame_size),
-                 steps_per_epoch=3)
+                 None, 3)
     return engine
 
 
@@ -2639,13 +2656,308 @@ def run_dispatch_times(card: str, profile_dir=None):
     return times
 
 
+def analytic_config(tmp: Path):
+    """configs/joint.json with ``strainmat_net_type: "analytic"`` and only
+    its data, split, epochs (2) and saving_dir changed: 160^2 synthetic
+    slices, T=20, cropped to 144^2 around the myocardium, resized to 128^2,
+    masked out, augmented by 2 sector rotations (interval 10) with one
+    translation each (2 variants a slice); train 4 subjects x 3 slices (36
+    with the variants), val and test a subject each, augmented slices kept
+    in train only, as configs/joint.json keeps them."""
+    from cardiax_torch.data.synthetic import make_dataset, save_npy
+    cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
+    t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
+    npy = tmp / "analytic_slices.npy"
+    save_npy(str(npy), make_dataset(n_subjects=6, slices_per_subject=3,
+                                    h=160, w=160, n_frames=t_myo, seed=21))
+    changes = {
+        "networks.joint_register_strainmat.strainmat_net_type": "analytic",
+        "training.epochs": 2,
+        "saving.saving_dir": str(tmp / "analytic_run"),
+        "data.npy_filename": str(npy),
+        "data.crop_to_myocardium_size": 144, "data.resize": True,
+        "data.resize_size": 128, "data.mask_out": True,
+        "data.augment_rotate_times": 2, "data.augment_rotate_interval": 10,
+        "data.augment_translate_times_y": 1,
+        "data.augment_translate_times_x": 1,
+        "data_split.splits.train.exclude_patterns": [".*CT04.*",
+                                                     ".*CT05.*"],
+        "data_split.splits.val.patterns": [".*CT04.*"],
+        "data_split.splits.test.patterns": [".*CT05.*"],
+    }
+    set_fields(cfg, changes)
+    return cfg, changes
+
+
+def strain_f32_vs_f64(disp, mask0, label) -> str:
+    """``strain_matrix_from_displacements`` on the card in f32 against the
+    same op on the CPU in float64, within 1e-5 of the output's range. A
+    myocardium pixel whose sector differs between the two precisions must
+    lie on a sector boundary (an arctan2 tie, within 1e-4 of a sector's
+    width): such pixels are counted apart and their sectors left out of the
+    error; any other difference fails."""
+    from cardiax_torch.ops.strain import (_angles,
+                                          strain_matrix_from_displacements)
+    n_sec = 126
+    out = strain_matrix_from_displacements(disp, mask0, n_sec)
+    torch.cuda.synchronize()
+    disp64, mask64 = disp.double().cpu(), mask0.double().cpu()
+    ref = strain_matrix_from_displacements(disp64, mask64, n_sec)
+    pos32 = ((_angles(mask0) + math.pi) / (2 * math.pi) * n_sec).cpu()
+    pos64 = (_angles(mask64) + math.pi) / (2 * math.pi) * n_sec
+    sec32 = pos32.floor().clamp(0, n_sec - 1).long()
+    sec64 = pos64.floor().clamp(0, n_sec - 1).long()
+    moved = (sec32 != sec64) & (mask64 > 0)
+    frac = pos64 - pos64.round()
+    require(bool((frac.abs()[moved] < 1e-4).all()),
+            f"{label}: pixels change sector between f32 and f64 away from "
+            f"a sector boundary")
+    skip = torch.zeros(ref.shape[:2], dtype=torch.bool)
+    for b, y, x in moved.nonzero().tolist():
+        skip[b, sec32[b, y, x]] = skip[b, sec64[b, y, x]] = True
+    err = (out.double().cpu() - ref).abs()[~skip]
+    rng = (ref.max() - ref.min()).item()
+    worst = err.max().item() / rng
+    require(worst <= 1e-5, f"{label}: f32 strain vs float64 "
+            f"{err.max().item():.3e} = {worst:.3e} of the range {rng:.4g}")
+    return (f"strain op f32 on the card vs float64 on the CPU over "
+            f"{tuple(ref.shape)}: max |d| {err.max().item():.3e} = "
+            f"{worst:.3e} of the range {rng:.4g} (tol 1e-5); "
+            f"{int(moved.sum())} boundary-tie pixels in "
+            f"{int(skip.sum())} sectors reported apart")
+
+
+def analytic_vs_flagship(card, dataset, cfg_a, cfg_r, n_pairs,
+                         profile_dir=None) -> str:
+    """The analytic and the ResNet3D flagship train steps over the same
+    resident dataset, from seeded weights: peak memory of each mode, host
+    time a step in turns (analytic loop, flagship loop, flagship loop,
+    analytic loop; then the graphs likewise) and each mode's device busy
+    time (profiler; with ``profile_dir`` the analytic loop step's table)."""
+    from cardiax_torch.data.loader import Batcher, DeviceBatcher
+    from cardiax_torch.train.graphs import EpochRunner
+    bs = int(cfg_a["training"]["batch_size"])
+    fns = {}
+    for name, cfg in (("analytic", cfg_a), ("ResNet3D", cfg_r)):
+        loop_eng = dispatch_engine(cfg, n_pairs)
+        arrays = loop_eng.to_device(next(iter(Batcher(dataset, bs))))
+        graph_eng = dispatch_engine(cfg, n_pairs)
+        loader = DeviceBatcher(dataset, bs, shuffle=True, seed=3,
+                               device=torch.device("cuda"))
+        runner = EpochRunner(loader, graph_eng._update,
+                             after_step=graph_eng._schedules_step)
+        fns[name] = {
+            "loop": (lambda e=loop_eng, a=arrays: e.train_step(a), 1),
+            "graph": (lambda r=runner, ld=loader: r(*ld.epoch_plan()),
+                      len(loader))}
+    mem = {(n, w): memory_gb(fns[n][w][0]) for n in fns for w in ("loop",
+                                                                  "graph")}
+    host = {k: [] for k in mem}
+    for w in ("loop", "graph"):
+        for n in ("analytic", "ResNet3D", "ResNet3D", "analytic"):
+            fn, steps = fns[n][w]
+            host[(n, w)].append(
+                timed_ms(fn, steps, max(1, math.ceil(10 / steps))))
+    parts = []
+    for (n, w), hs in host.items():
+        fn, steps = fns[n][w]
+        busy, prof = profile_steps(fn)
+        busy = None if busy is None else busy / steps
+        if profile_dir and (n, w) == ("analytic", "loop"):
+            write_profile(prof, Path(profile_dir), "analytic_train")
+        h = sum(hs) / len(hs)
+        idle = "not measured" if busy is None else f"{1 - busy / h:.1%}"
+        parts.append(
+            f"{n} {w} host {', '.join(f'{x:.3f}' for x in hs)} ms/step, "
+            f"device busy {'not measured' if busy is None else f'{busy:.3f} ms'}"
+            f"/step, idle {idle}, peak allocated {mem[(n, w)][0]:.3f} GB, "
+            f"reserved +{mem[(n, w)][1]:.3f} GB")
+    return (f"analytic vs ResNet3D train step (batch {bs} at 128^2, T=20; "
+            f"{card}; turns analytic, ResNet3D, ResNet3D, analytic, loop "
+            f"then graph): " + "; ".join(parts))
+
+
+def run_analytic(tmp: Path, card: str, profile_dir=None):
+    """The analytic strain path at full width: ``load_data`` with the
+    preprocessing chain and augmentation through the native engine (host
+    time a slice), ``main.run`` of configs/joint.json with
+    ``strainmat_net_type: "analytic"`` for 2 epochs under JAX's ``auto``
+    dispatch (CUDA graphs; exact K1-K4 launches, finite losses each epoch,
+    128^2 frames), one train step kernel vs plain, the strain op in f32 on
+    the card against float64, and the analytic step beside the ResNet3D
+    flagship step. Returns the launches of ``main.run``."""
+    from cardiax_torch import main as port_main
+    from cardiax_torch.data import load_data
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.native import native_available
+    require(native_available(), "analytic: the native data engine did not "
+            "build")
+    cfg, changes = analytic_config(tmp)
+    print(f"analytic: configs/joint.json with {json.dumps(changes)}")
+    t0 = time.perf_counter()
+    data = load_data(copy.deepcopy(cfg["data"]), cfg)
+    load_s = time.perf_counter() - t0
+    n_aug = sum(d["augmented"] for d in data)
+    shapes = {d["cine_lv_myo_masks"].shape for d in data}
+    require(len(data) == 54 and n_aug == 36 and shapes == {(128, 128, 20)},
+            f"analytic: load_data gave {len(data)} slices ({n_aug} "
+            f"augmented) of {shapes}")
+    print(f"analytic: load_data of 18 slices of 160^2 x 20 (native engine): "
+          f"{len(data)} slices ({n_aug} augmented), cropped to 144^2, resized"
+          f" to 128^2, masked out, in {load_s * 1e3:.3f} ms host = "
+          f"{load_s / 18 * 1e3:.3f} ms an input slice, "
+          f"{load_s / len(data) * 1e3:.3f} ms an output slice")
+
+    epochs = cfg["training"]["epochs"]
+    batch_size = int(cfg["training"]["batch_size"])
+    n_steps = n_euler_steps(cfg)
+    vis_every = max(1, int(float(cfg["others"]["wandb_visualize_interval"])
+                           * epochs))
+    n_figs = len(range(0, epochs, vis_every))
+    zero_counts()
+    t0 = time.perf_counter()
+    with watched_main_run() as watch:
+        res = port_main.run(copy.deepcopy(cfg))
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = named_counts()
+    train_steps = epochs * math.ceil(36 / batch_size)
+    eval_batches = epochs + n_figs + 2
+    expect = {"mc_warp_fwd": train_steps + eval_batches,
+              "epdiff_step_fwd": n_steps * (train_steps + eval_batches),
+              "epdiff_step_bwd": n_steps * train_steps,
+              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
+    require(launches == expect, f"analytic launches {launches} != {expect}")
+    hist = res["train_loss_dict"]
+    for key in ("train/total_loss", "val/total_loss"):
+        require(len(hist[key]) == epochs
+                and all(math.isfinite(v) for v in hist[key]),
+                f"analytic {key} per epoch: {hist[key]}")
+    perf = {k: v for t in ("val", "test")
+            for k, v in res[f"{t}_performance"].items()}
+    require(all(math.isfinite(v) for v in perf.values()),
+            f"analytic: non-finite metric: {perf}")
+    eng, train_loader, val_loader = watch.engines[0]
+    frames = {tuple(ld._data["cine_myo_mask"].shape)
+              for ld in (train_loader, val_loader)}
+    require(frames == {(36, 1, 20, 128, 128), (3, 1, 20, 128, 128)},
+            f"analytic: resident frames {frames}")
+    require(eng.modules["joint_register_strainmat"].strain_head is None,
+            "analytic: the network has a strain head")
+    print(f"analytic: main.run {epochs} epochs x {train_steps // epochs} "
+          f"train steps (last batch padded) + {eval_batches} eval batches in "
+          f"{secs:.2f} s; resident frames {sorted(frames)}; total_loss per "
+          f"epoch train {[round(v, 6) for v in hist['train/total_loss']]}, "
+          f"val {[round(v, 6) for v in hist['val/total_loss']]}; "
+          f"{save_text(watch.saves)}; launches {launches}; "
+          f"{dispatch_text(watch, 'analytic', pipelined=False)}")
+
+    # one train step kernel vs plain, on the preprocessed slices
+    train = [d for d in data if "CT04" not in d["subject_id"]
+             and "CT05" not in d["subject_id"]]
+    ds = JointDataset(train, dataset_config=cfg["datasets"]["train"])
+    batch = next(iter(Batcher(ds, batch_size)))
+    fresh_engine, arrays = kernel_vs_plain_step(cfg, batch, "analytic step")
+
+    # the strain op on the step's displacements
+    engine = fresh_engine()
+    with torch.no_grad():
+        _, preds = engine.eval_step(arrays)
+    disp = preds["displacement"].float().transpose(1, 2).contiguous()
+    require(disp.abs().max().item() > 0.05,
+            "analytic: the momentum head moved nothing")
+    mask0 = arrays["cine_myo_mask"][:, 0, 0]
+    print(f"analytic: {strain_f32_vs_f64(disp, mask0, 'analytic')}; "
+          f"max|u_inv| {disp.abs().max().item():.3f} px")
+    del engine, fresh_engine, arrays, preds, mask0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg_r = json.loads((ROOT / "configs" / "joint.json").read_text())
+    t_myo = int(cfg_r["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
+    print(f"analytic: "
+          f"{analytic_vs_flagship(card, ds, cfg, cfg_r, t_myo - 1, profile_dir)}")
+    return launches
+
+
+def run_kfold_phase(tmp: Path, card: str):
+    """``cardiax_torch.kfold.run_kfold`` on configs/joint.json as written
+    (ResNet3D) but for data, epochs (1) and saving_dir: 2 folds of 2
+    synthetic subjects each (3 slices a subject, 128^2, T=20), the other 4
+    subjects train. Gates: finite ``fold{i}/`` metrics and their average,
+    and each fold's exact K1-K4 launches. Returns the launches of both
+    folds."""
+    from cardiax_torch import kfold
+    from cardiax_torch.data.synthetic import make_dataset, save_npy
+    cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
+    t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
+    npy = tmp / "kfold_slices.npy"
+    save_npy(str(npy), make_dataset(n_subjects=8, slices_per_subject=3,
+                                    h=128, w=128, n_frames=t_myo, seed=23))
+    set_fields(cfg, {"training.epochs": 1, "data.npy_filename": str(npy),
+                     "saving.saving_dir": str(tmp / "kfold_run")})
+    folds = [[".*CT00.*", ".*CT01.*"], [".*CT02.*", ".*CT03.*"]]
+    marks = []
+    build = kfold.build_trainer
+
+    def marked_build(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks.append(named_counts())
+        return build(*args, **kwargs)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    kfold.build_trainer = marked_build
+    try:
+        out = kfold.run_kfold(cfg, folds)
+        torch.cuda.synchronize()
+    finally:
+        kfold.build_trainer = build
+    secs = time.perf_counter() - t0
+    marks.append(named_counts())
+    n_steps = n_euler_steps(cfg)
+    bs = int(cfg["training"]["batch_size"])
+    train_steps = math.ceil(12 / bs)
+    eval_batches = 1 + 1 + 2          # val, the figure's val batch, val+test
+    expect = {"mc_warp_fwd": train_steps + eval_batches,
+              "epdiff_step_fwd": n_steps * (train_steps + eval_batches),
+              "epdiff_step_bwd": n_steps * train_steps,
+              "mc_warp_disp_bwd": train_steps, "mc_warp_fused_bwd": 0,
+              "epdiff_step_solve_fwd": 0, "epdiff_step_solve_bwd": 0}
+    require(len(marks) == 3, f"kfold: {len(marks) - 1} folds trained")
+    for i in range(2):
+        got = {k: marks[i + 1][k] - marks[i][k] for k in expect}
+        require(got == expect, f"kfold fold {i} launches {got} != {expect}")
+    require(len(out["folds"]) == 2, "kfold: not 2 folds")
+    for r in out["folds"]:
+        perf = r["performance"]
+        require(perf and all(k.startswith(f"fold{r['fold']}/") and
+                             math.isfinite(v) for k, v in perf.items()),
+                f"kfold fold {r['fold']}: metrics {perf}")
+    avg = out["average"]
+    key = "average/final-test/sector_error"
+    require(key in avg and all(math.isfinite(v) for v in avg.values()),
+            f"kfold: average {avg}")
+    launches = {k: marks[2][k] - marks[0][k] for k in expect}
+    per_fold = [r["performance"][f"fold{r['fold']}/final-test/sector_error"]
+                for r in out["folds"]]
+    print(f"kfold: run_kfold on configs/joint.json (ResNet3D), 2 folds of 2 "
+          f"subjects x 3 slices, train 12 slices, 1 epoch each, in "
+          f"{secs:.2f} s ({card}): per fold launches {expect}; "
+          f"{len(avg)} averaged metrics, {key} {avg[key]:.4f} (folds "
+          f"{', '.join(f'{v:.4f}' for v in per_fold)})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="directory for profiler tables of the eval, train, "
-                         "large train, fused-solve train, reg train and "
-                         "regression train steps, and of the dispatch "
-                         "phase's loop and graph steps")
+                         "large train, fused-solve train, reg train, "
+                         "regression train and analytic train steps, and of "
+                         "the dispatch phase's loop and graph steps")
     ap.add_argument("--baseline", default=None,
                     help="a checkout of an earlier commit whose kernels "
                          "take the same C arguments: each kernel alone is "
@@ -2693,6 +3005,9 @@ def main(argv=None) -> int:
         paths["reg"] = run_reg(Path(tmp), card, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         paths["regression"] = run_schemes(Path(tmp), card, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["analytic"] = run_analytic(Path(tmp), card, args.profile)
+        paths["kfold"] = run_kfold_phase(Path(tmp), card)
     # launches: K1-K4 from the flagship's training run, K5 from the ops
     # path (the only one that needs a field gradient), K6/K7 from the
     # fused-solve run; every path's counts beside them (reg and

@@ -415,7 +415,7 @@ def test_train_step_graph_replay_matches_eager_step(cuda):
     engines = []
     for _ in range(2):
         eng = build_trainer(cfg["training"], "cuda", cfg)
-        eng.setup(copy.deepcopy(nets), steps_per_epoch=2)
+        eng.setup(copy.deepcopy(nets), None, 2)
         engines.append(eng)
     graph_eng, loop_eng = engines
     with deterministic():

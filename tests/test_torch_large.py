@@ -63,7 +63,7 @@ def test_rectangular_train_step_matches_jax_on_the_fft_branches(monkeypatch):
     eng = build_trainer(cfg["training"], "cpu", cfg)
     eng.setup({n: build_model(mc, n_pairs=T_MYO - 1)
                for n, mc in cfg["networks"].items()},
-              params_from_flax(params), steps_per_epoch=1)
+              None, 1, state_dicts=params_from_flax(params))
     dev = eng.to_device(batch)
     with torch.no_grad():
         preds, _ = eng.scheme.forward(eng.modules, dev)

@@ -435,8 +435,8 @@ def jax_step(cfg, batch, patch=None):
 def port_engine(cfg, state, **shapes):
     eng = build_trainer(cfg["training"], "cpu", cfg)
     eng.setup({n: build_model(mc, **shapes)
-               for n, mc in cfg["networks"].items()}, state,
-              steps_per_epoch=1)
+               for n, mc in cfg["networks"].items()}, None, 1,
+              state_dicts=state)
     return eng
 
 

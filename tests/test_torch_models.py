@@ -183,7 +183,8 @@ def eval_step_pair():
     state = params_from_flax(params)
     eng = build_trainer(cfg["training"], "cpu", cfg)
     eng.setup({n: build_model(mc, n_pairs=T_MYO - 1)
-               for n, mc in cfg["networks"].items()}, state)
+               for n, mc in cfg["networks"].items()}, None, 1,
+              state_dicts=state)
     return batches, jax_batches, results, eng, params, state
 
 

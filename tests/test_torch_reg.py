@@ -122,7 +122,7 @@ def _engine(reg_pair):
     cfg = copy.deepcopy(reg_pair["cfg"])
     eng = build_trainer(cfg["training"], "cpu", cfg)
     eng.setup({n: build_model(mc) for n, mc in cfg["networks"].items()},
-              reg_pair["state"], steps_per_epoch=1)
+              None, 1, state_dicts=reg_pair["state"])
     return eng
 
 

@@ -11,6 +11,8 @@ behaviour tests check what the repaired signatures return and refuse. All
 run in seconds on the CPU.
 """
 
+import importlib
+import importlib.util
 import inspect
 
 import numpy as np
@@ -69,8 +71,29 @@ from cardiax_torch.train.schemes.lma import LMAScheme
 from cardiax_torch.train.schemes.reg import RegScheme
 from cardiax_torch.train.schemes.strainmat_lma import StrainMatLMAScheme
 from cardiax_torch.train.schemes.strainmat_pred import StrainMatPredScheme
+import cardiax.config.config as jconfig
+import cardiax.config.sweep as jcsweep
+import cardiax.data as jdata
+import cardiax.data.augmentation as jaug
+import cardiax.data.datareader as jreader
+import cardiax.data.split as jsplit
+import cardiax.kfold as jkfold
+import cardiax.native.lib as jnative
+import cardiax.sweep as jsweep
+import cardiax_torch.config.config as tconfig
+import cardiax_torch.config.sweep as tcsweep
+import cardiax_torch.data as tdata
+import cardiax_torch.data.augmentation as taug
+import cardiax_torch.data.datareader as treader
+import cardiax_torch.data.split as tsplit
+import cardiax_torch.kfold as tkfold
+import cardiax_torch.native.lib as tnative
+import cardiax_torch.sweep as tsweep
+from cardiax.models.joint_net import \
+    JointRegisterStrainMatNet as JaxJointRegisterStrainMatNet
 from cardiax_torch.data.synthetic import make_dataset
 from cardiax_torch.io.metrics import MetricsTracker
+from cardiax_torch.models.joint_net import JointRegisterStrainMatNet
 from cardiax_torch.train import build_trainer
 
 # (port object, JAX object) by name
@@ -81,6 +104,8 @@ PAIRS = {
                             jengine.TrainerEngine.train),
     "TrainerEngine.test": (tengine.TrainerEngine.test,
                            jengine.TrainerEngine.test),
+    "TrainerEngine.setup": (tengine.TrainerEngine.setup,
+                            jengine.TrainerEngine.setup),
     "Scheme.forward": (tengine.Scheme.forward, jengine.Scheme.forward),
     "JointDataset.__init__": (tds.JointDataset.__init__,
                               jds.JointDataset.__init__),
@@ -182,7 +207,52 @@ PAIRS = {
                   "_sobel_magnitude", "gradient_magnitude_loss")},
     **{f"metrics.{fn}": (getattr(tmetrics, fn), getattr(jmetrics, fn))
        for fn in ("tos_sector_error", "classification_metrics",
-                  "binary_auc", "threshold_sweep_f1")},
+                  "binary_auc", "threshold_sweep_f1",
+                  "get_average_performance_dict")},
+    "losses.HardCodedLossCalculator.__init__": (
+        tcalc.HardCodedLossCalculator.__init__,
+        jcalc.HardCodedLossCalculator.__init__),
+    "losses.HardCodedLossCalculator.__call__": (
+        tcalc.HardCodedLossCalculator.__call__,
+        jcalc.HardCodedLossCalculator.__call__),
+    "JointRegisterStrainMatNet._analytic_strain": (
+        JointRegisterStrainMatNet._analytic_strain,
+        JaxJointRegisterStrainMatNet._analytic_strain),
+    "config.update_config_by_another_config": (
+        tconfig.update_config_by_another_config,
+        jconfig.update_config_by_another_config),
+    **{f"config.sweep.{fn}": (getattr(tcsweep, fn), getattr(jcsweep, fn))
+       for fn in ("load_sweep_file", "apply_sweep_params")},
+    **{f"sweep.{fn}": (getattr(tsweep, fn), getattr(jsweep, fn))
+       for fn in ("expand_grid", "run_sweep", "main")},
+    **{f"kfold.{fn}": (getattr(tkfold, fn), getattr(jkfold, fn))
+       for fn in ("run_kfold", "main")},
+    **{f"SplitManager.{m}": (getattr(tsplit.SplitManager, m),
+                             getattr(jsplit.SplitManager, m))
+       for m in ("__init__", "__len__", "__getitem__", "__iter__")},
+    **{f"data.{fn}": (getattr(tdata, fn), getattr(jdata, fn))
+       for fn in ("load_data", "split_vol_to_registration_pairs",
+                  "get_data_from_slice")},
+    **{f"augmentation.{fn}": (getattr(taug, fn), getattr(jaug, fn))
+       for fn in ("translate", "rotate", "translate_ladder",
+                  "rotate_sector_ladder", "rotate_by_sectors",
+                  "augment_datum", "augment_all_data")},
+    **{f"datareader.{fn}": (getattr(treader, fn), getattr(jreader, fn))
+       for fn in ("load_DENSE_slices_from_npy_file",
+                  "load_cine_pairs_from_npy_file",
+                  "load_slices_from_npy_file", "try_merge_displacements",
+                  "append_additional_data_from_npy", "_as_hw",
+                  "_resize_slice_images", "_crop_to_myocardium",
+                  "_mask_out_images")},
+    **{f"datareader.{cls}.{m}": (getattr(getattr(treader, cls), m),
+                                 getattr(getattr(jreader, cls), m))
+       for cls, ms in (("BaseDatum", ("__init__", "feed_to_network")),
+                       ("DENSEDataReader", ("load_record_from_npy",)),
+                       ("BaseDataReader", ("load_record",)))
+       for m in ms},
+    **{f"native.{fn}": (getattr(tnative, fn), getattr(jnative, fn))
+       for fn in ("load_native", "native_available", "rotate_stack",
+                  "roll_stack", "collate_pad")},
 }
 
 _FLAX = {"parent", "name"}
@@ -193,6 +263,10 @@ BY_DESIGN = {
         {"mesh"}, {"device"},
         "one card, no mesh (data parallel is ROADMAP A11); the engine's "
         "device is given at construction, None meaning the card"),
+    "TrainerEngine.setup": (
+        set(), {"state_dicts"},
+        "keyword-only: weights to load instead of drawing them (JAX's "
+        "bundles carry their params)"),
     "Scheme.forward": (
         {"params", "train"}, set(),
         "torch modules hold their parameters and their train/eval mode"),
@@ -219,6 +293,13 @@ BY_DESIGN = {
     "main.run": (
         set(), {"device"},
         "the port's entry points take the device; None means the card"),
+    "sweep.run_sweep": (
+        set(), {"device"},
+        "the port's entry points take the device; None means the card"),
+    "kfold.run_kfold": (
+        {"mesh"}, {"device"},
+        "one card, no mesh (data parallel is ROADMAP A11); None means the "
+        "card"),
     **{f"{cls}.forward": (
         {"params", "train"}, set(),
         "torch modules hold their parameters and their train/eval mode")
@@ -253,6 +334,15 @@ BY_DESIGN = {
 }
 
 
+# name -> {parameter: (port default, JAX default, reason)}
+DEFAULTS_BY_DESIGN = {
+    "TrainerEngine.setup": {"seed": (
+        None, 2434,
+        "None reads training.seed, which defaults to 2434; JAX's callers "
+        "pass training.seed themselves")},
+}
+
+
 def _params(fn):
     return [(p.name, p.default)
             for p in inspect.signature(fn).parameters.values()]
@@ -262,11 +352,74 @@ def _params(fn):
 def test_port_takes_the_jax_parameters(name):
     port, ref = PAIRS[name]
     dropped, added, _ = BY_DESIGN.get(name, (set(), set(), ""))
+    defaults = DEFAULTS_BY_DESIGN.get(name, {})
     got = [p for p in _params(port) if p[0] not in added]
     want = [p for p in _params(ref) if p[0] not in dropped]
+    for i, (pname, default) in enumerate(want):
+        if pname in defaults:
+            ours, theirs, _ = defaults[pname]
+            assert default == theirs
+            want[i] = (pname, ours)
     assert got == want
     names = [p[0] for p in _params(port)]
     assert added <= set(names) and not dropped & set(names)
+
+
+# JAX modules with an ``__all__`` -> the ROADMAP item that ports their names,
+# for those the port does not export yet
+EXPORTS_NOT_PORTED = {"parallel": "ROADMAP A11 (data parallel, queue item 6)"}
+
+
+@pytest.mark.parametrize("module", ["config", "data", "io", "losses",
+                                    "native", "ops", "train", "parallel"])
+def test_port_exports_the_jax_names(module):
+    """Every name in a JAX package module's ``__all__`` resolves in the
+    port's module of the same name, or the module is listed as not ported
+    yet with its ROADMAP item."""
+    ref = importlib.import_module(f"cardiax.{module}")
+    if module in EXPORTS_NOT_PORTED:
+        assert importlib.util.find_spec(f"cardiax_torch.{module}") is None
+        return
+    port = importlib.import_module(f"cardiax_torch.{module}")
+    missing = [n for n in ref.__all__ if not hasattr(port, n)]
+    assert not missing
+    assert set(ref.__all__) <= set(getattr(port, "__all__", ()))
+
+
+def test_setup_state_dicts_is_keyword_only():
+    param = inspect.signature(tengine.TrainerEngine.setup).parameters[
+        "state_dicts"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_setup_takes_the_jax_call():
+    """JAX's own call, ``trainer.setup(networks, example, steps_per_epoch=1,
+    seed=...)`` (``cardiax/main.py``), on configs/reg.json's networks: the
+    batch lands on ``example_batch`` and is not read; the weights are drawn
+    from the seed, so two engines set up alike hold equal weights and one
+    optimizer per configured model."""
+    import json
+    from pathlib import Path
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "configs"
+                      / "reg.json").read_text())
+    pairs = tsynthetic.make_registration_pairs(make_dataset(
+        n_subjects=1, slices_per_subject=1, h=16, w=16, n_frames=3,
+        seed=3))
+    ds = tds.BasicRegistrationDataset(
+        pairs, dataset_config=cfg["datasets"]["train"])
+    states = []
+    for _ in range(2):
+        eng = build_trainer(cfg["training"], "cpu", cfg)
+        example = next(iter(eng.scheme.make_loader(ds, 2, shuffle=False)))
+        networks = {n: tmodels.build_model(mc)
+                    for n, mc in cfg["networks"].items()}
+        eng.setup(networks, example, steps_per_epoch=1, seed=2434)
+        assert set(eng.modules) == set(cfg["networks"])
+        assert set(eng.optimizers) == set(cfg["training"]["optimizers"])
+        states.append({k: v.clone() for k, v in
+                       eng.modules["registration"].state_dict().items()})
+    for k, v in states[0].items():
+        assert torch.equal(v, states[1][k]), k
 
 
 def test_solve_mm_operands_device_is_keyword_only():
@@ -299,6 +452,8 @@ def _data_cfg():
 
 
 def test_joint_dataset_takes_augmentation_first():
+    """``augmentation`` comes second, as in JAX, and like JAX's the three
+    datasets that take it never read it: any value gives the same items."""
     data = make_dataset(n_subjects=2, slices_per_subject=1, h=8, w=8,
                         n_frames=6, seed=1)
     by_position = tds.JointDataset(data, None, _data_cfg())
@@ -310,8 +465,25 @@ def test_joint_dataset_takes_augmentation_first():
         assert a["cine_myo_mask"].shape == (1, T_MYO, 8, 8)
         for k in ("cine_myo_mask", "strain_matrix", "TOS"):
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        tds.JointDataset(data, {"rotate": 1}, _data_cfg())
+    disp = tsynthetic.add_displacement_fields(
+        make_dataset(n_subjects=2, slices_per_subject=1, h=8, w=8,
+                     n_frames=6, seed=2), seed=2)
+    lma_cfg = {"n_frames_to_use_for_regression": 6}
+    for cls, items, cfg in ((tds.JointDataset, data, _data_cfg()),
+                            (tds.LMADataset, disp, lma_cfg),
+                            (tds.StrainMatDataset, disp, lma_cfg)):
+        plain = cls(items, None, cfg)
+        jax_plain = getattr(jds, cls.__name__)(items, None, cfg)
+        for aug in ({"rotate": 1}, "anything", 3):
+            port = cls(items, aug, cfg)
+            assert len(port) == len(plain) == len(jax_plain)
+            jax_aug = getattr(jds, cls.__name__)(items, aug, cfg)
+            for i in range(len(port)):
+                for k, v in plain[i].items():
+                    if isinstance(v, np.ndarray):
+                        np.testing.assert_array_equal(port[i][k], v)
+                        np.testing.assert_array_equal(jax_aug[i][k],
+                                                      jax_plain[i][k])
 
 
 def _tiny_engine():

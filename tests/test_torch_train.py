@@ -244,7 +244,7 @@ def step_pair():
         eng = build_trainer(cfg["training"], "cpu", cfg)
         eng.setup({n: build_model(mc, n_pairs=T_MYO - 1)
                    for n, mc in cfg["networks"].items()},
-                  state, steps_per_epoch=1)
+                  None, 1, state_dicts=state)
         return eng
     return {"engine": engine, "batch": batch,
             "values": jax.tree_util.tree_map(np.asarray, values),
