@@ -104,3 +104,10 @@ def require_cuda(what: str, **tensors) -> None:
         if not t.is_cuda:
             raise RuntimeError(f"{what}: {name} is not a CUDA tensor; the "
                                f"kernel runs only on the card")
+
+
+def require_cpu_or_cuda(what: str, **tensors) -> None:
+    """CPU tensors take a kernel's plain version; any other device must be
+    CUDA, where the kernel runs."""
+    if next(iter(tensors.values())).device.type != "cpu":
+        require_cuda(what, **tensors)

@@ -10,7 +10,11 @@ config -> ``load_data`` -> ``split_data`` -> ``build_datasets`` ->
 Saved weights load before training (``training.load_pretrained_model`` with
 ``pretrained_model_path``) or in place of it (``inference_only``, from
 ``saving.saving_dir``): a directory of ``model-{name}.pt`` (the port's) or
-``model-{name}.msgpack`` (the JAX package's) files, or one such file. The
+``model-{name}.msgpack`` (the JAX package's) files, or one such file. An
+interrupted training run saves its models to ``saving_dir/interrupted``
+and re-raises (``saving.save_KeyboardInterrupt``, default true); a final
+save in a compiled ``saving.save_model_method`` (``jit``, ``onnx``) also
+writes each model as a ``torch.export`` program (``io/export.py``). The
 TPU lock and the device mesh of the JAX entry point have no counterpart.
 """
 
@@ -128,10 +132,24 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
     results: Dict[str, Any] = {}
     tracker = None
     if not inference_only:
-        trained_models, tracker = trainer.train(
-            models=networks, datasets=datasets, trainer_config=training,
-            full_config=config,
-            use_wandb=config.get("others", {}).get("use_wandb", False))
+        try:
+            trained_models, tracker = trainer.train(
+                models=networks, datasets=datasets, trainer_config=training,
+                full_config=config,
+                use_wandb=config.get("others", {}).get("use_wandb", False))
+        except KeyboardInterrupt:
+            # saving.save_KeyboardInterrupt: keep what was learned before
+            # the interrupt. The modules hold the last completed step's
+            # weights (a replayed CUDA graph updates them in place): wait
+            # for the card, so that no replay is half written
+            if saving.get("save_KeyboardInterrupt", True):
+                if trainer.device.type == "cuda":
+                    torch.cuda.synchronize(trainer.device)
+                save_trained_models(saving_dir / "interrupted", networks,
+                                    config)
+                print(f"KeyboardInterrupt: models saved to "
+                      f"{saving_dir / 'interrupted'}")
+            raise
         results.update(best_epoch=trained_models["best_epoch"],
                        train_loss_dict=trained_models["train_loss_dict"])
     else:
@@ -159,11 +177,25 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
             save_predictions(preds, saving_dir / fname)
             results[f"{target}_pred_path"] = str(saving_dir / fname)
 
-    # 6. save models
+    # 6. save models; a compiled method traces each model at one batch of
+    # the first non-empty split (the scheme's example_model_args)
     if saving.get("save_final_model", False):
         perf_all = {k: v for t in ("val", "test")
                     for k, v in results.get(f"{t}_performance", {}).items()}
-        save_trained_models(saving_dir, networks, config, perf_all)
+        example_args = None
+        method = saving.get("save_model_method") or saving.get("method")
+        if method in ("jit", "onnx"):
+            src_name = next((n for n in ("train", "val", "test")
+                             if len(datasets.get(n, ())) > 0), None)
+            if src_name is not None:
+                batch = next(iter(trainer.scheme.make_loader(
+                    datasets[src_name], int(training.get("batch_size", 10)),
+                    shuffle=False)))
+                example_args = trainer.scheme.example_model_args(
+                    {n: b.module for n, b in networks.items()},
+                    trainer.to_device(batch))
+        save_trained_models(saving_dir, networks, config, perf_all,
+                            example_args=example_args)
     if tracker is not None:
         tracker.finish()
     return results

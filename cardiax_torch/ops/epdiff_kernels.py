@@ -12,9 +12,16 @@ four products of ``epdiff_pallas._solve_mm`` on the operands of
 ``fluid_metric.solve_mm_operands``, and its VJP adds K g_v to g_m. The
 kernels are in ``cardiax_torch/csrc/epdiff_step.cu``; the ``_plain``
 functions here are the same functions in plain PyTorch, used for CPU
-tensors and as the kernels' checks. ``EPDiffStep`` ties K2/K3 into autograd
-and saves (v, m, u) as ``epdiff_pallas._step_fwd`` does;
-``EPDiffStepSolve`` ties K6/K7 in and saves only (m, u), as
+tensors and as the kernels' checks.
+
+Each kernel is a ``torch.library`` custom op (``cardiax_torch::
+epdiff_step_fwd``, ``epdiff_step_bwd``, ``epdiff_step_solve_fwd``,
+``epdiff_step_solve_bwd``): the CUDA implementation launches the kernel,
+the CPU one is the plain version, the fake one gives ``torch.export`` the
+output shapes, so an exported program holds the kernels. ``dt`` and
+``radius`` are Python scalars in the schema. The forward ops carry their
+backward (``register_autograd``): K2's is K3, saving (v, m, u) as
+``epdiff_pallas._step_fwd`` does; K6's is K7, saving only (m, u), as
 ``_step_solve_fwd`` does.
 
 Each wrapper counts its kernel's launches in ``ops.counters`` (K2
@@ -30,7 +37,7 @@ from typing import Tuple
 import torch
 
 from cardiax_torch.kernels.build import (check, check_inputs, load_library,
-                                         require_cuda)
+                                         require_cpu_or_cuda, require_cuda)
 from cardiax_torch.ops import counters
 from cardiax_torch.ops.fluid_metric import solve_mm_operands
 from cardiax_torch.ops.warp_kernels import (_mc_warp_plain, _warp_transpose,
@@ -159,6 +166,39 @@ def _epdiff_step_bwd_cuda(v, m, u, gm, gu, dt: float, radius: int):
     return g_v, g_m, g_u
 
 
+@torch.library.custom_op("cardiax_torch::epdiff_step_fwd", mutates_args=(),
+                         device_types="cuda")
+def epdiff_step_fwd_op(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
+                       dt: float, radius: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _epdiff_step_cuda(v, m, u, dt, radius)
+
+
+epdiff_step_fwd_op.register_kernel("cpu")(_epdiff_step_plain)
+
+
+@epdiff_step_fwd_op.register_fake
+def _(v, m, u, dt, radius):
+    return torch.empty_like(m), torch.empty_like(u)
+
+
+@torch.library.custom_op("cardiax_torch::epdiff_step_bwd", mutates_args=(),
+                         device_types="cuda")
+def epdiff_step_bwd_op(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
+                       gm: torch.Tensor, gu: torch.Tensor, dt: float,
+                       radius: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, radius)
+
+
+epdiff_step_bwd_op.register_kernel("cpu")(_epdiff_step_bwd_plain)
+
+
+@epdiff_step_bwd_op.register_fake
+def _(v, m, u, gm, gu, dt, radius):
+    return torch.empty_like(v), torch.empty_like(m), torch.empty_like(u)
+
+
 def epdiff_step_bwd(v, m, u, gm, gu, dt: float, radius: int):
     """(g_v, g_m, g_u) of one step from the cotangents (gm, gu) of its
     outputs. A CUDA tensor goes through kernel K3 (or raises), a CPU tensor
@@ -169,30 +209,28 @@ def epdiff_step_bwd(v, m, u, gm, gu, dt: float, radius: int):
                          "one-sided stencil), got "
                          f"{tuple(v.shape[-2:])}")
     check_inputs("epdiff_step_bwd", v=v, m=m, u=u, gm=gm, gu=gu)
-    if v.device.type == "cpu":
-        return _epdiff_step_bwd_plain(v, m, u, gm, gu, dt, radius)
-    return _epdiff_step_bwd_cuda(v, m, u, gm, gu, dt, radius)
+    require_cpu_or_cuda("epdiff_step_bwd", v=v, m=m, u=u, gm=gm, gu=gu)
+    return epdiff_step_bwd_op(v, m, u, gm, gu, float(dt), int(radius))
 
 
-class EPDiffStep(torch.autograd.Function):
-    """K2 forward, K3 backward; a cotangent that arrives as None (m' of the
-    last step) is zeros."""
+def _epdiff_step_setup(ctx, inputs, output):
+    v, m, u, dt, radius = inputs
+    ctx.dt, ctx.radius = dt, radius
+    ctx.save_for_backward(v, m, u)
 
-    @staticmethod
-    def forward(ctx, v, m, u, dt: float, radius: int):
-        ctx.dt, ctx.radius = dt, radius
-        ctx.save_for_backward(v, m, u)
-        if v.device.type == "cpu":
-            return _epdiff_step_plain(v, m, u, dt, radius)
-        return _epdiff_step_cuda(v, m, u, dt, radius)
 
-    @staticmethod
-    def backward(ctx, gm, gu):
-        v, m, u = ctx.saved_tensors
-        gm = torch.zeros_like(m) if gm is None else gm.contiguous()
-        gu = torch.zeros_like(u) if gu is None else gu.contiguous()
-        g_v, g_m, g_u = epdiff_step_bwd(v, m, u, gm, gu, ctx.dt, ctx.radius)
-        return g_v, g_m, g_u, None, None
+def _epdiff_step_backward(ctx, gm, gu):
+    """K3; a cotangent that arrives as None (m' of the last step) is
+    zeros."""
+    v, m, u = ctx.saved_tensors
+    gm = torch.zeros_like(m) if gm is None else gm.contiguous()
+    gu = torch.zeros_like(u) if gu is None else gu.contiguous()
+    g_v, g_m, g_u = epdiff_step_bwd(v, m, u, gm, gu, ctx.dt, ctx.radius)
+    return g_v, g_m, g_u, None, None
+
+
+epdiff_step_fwd_op.register_autograd(_epdiff_step_backward,
+                                     setup_context=_epdiff_step_setup)
 
 
 def _check_step_inputs(what: str, radius: int, **planes) -> None:
@@ -206,6 +244,7 @@ def _check_step_inputs(what: str, radius: int, **planes) -> None:
     if min(first.shape[-2:]) < 2 or radius < 1:
         raise ValueError(f"{what}: needs H, W >= 2 and radius >= 1")
     check_inputs(what, **planes)
+    require_cpu_or_cuda(what, **planes)
 
 
 def epdiff_step(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
@@ -215,7 +254,7 @@ def epdiff_step(v: torch.Tensor, m: torch.Tensor, u: torch.Tensor,
     A CUDA tensor goes through the kernels (or raises); a CPU tensor through
     the plain versions. Inputs must be contiguous float32."""
     _check_step_inputs("epdiff_step_fwd", radius, v=v, m=m, u=u)
-    return EPDiffStep.apply(v, m, u, dt, radius)
+    return epdiff_step_fwd_op(v, m, u, float(dt), int(radius))
 
 
 # --------------------------------------------------------------------------- #
@@ -314,6 +353,41 @@ def _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt: float,
     return g_m, g_u
 
 
+@torch.library.custom_op("cardiax_torch::epdiff_step_solve_fwd",
+                         mutates_args=(), device_types="cuda")
+def epdiff_step_solve_fwd_op(m: torch.Tensor, u: torch.Tensor,
+                             ty: torch.Tensor, tx: torch.Tensor,
+                             wgt: torch.Tensor, dt: float, radius: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt, radius)
+
+
+epdiff_step_solve_fwd_op.register_kernel("cpu")(_epdiff_step_solve_plain)
+
+
+@epdiff_step_solve_fwd_op.register_fake
+def _(m, u, ty, tx, wgt, dt, radius):
+    return torch.empty_like(m), torch.empty_like(u)
+
+
+@torch.library.custom_op("cardiax_torch::epdiff_step_solve_bwd",
+                         mutates_args=(), device_types="cuda")
+def epdiff_step_solve_bwd_op(m: torch.Tensor, u: torch.Tensor,
+                             ty: torch.Tensor, tx: torch.Tensor,
+                             wgt: torch.Tensor, gm: torch.Tensor,
+                             gu: torch.Tensor, dt: float, radius: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt, radius)
+
+
+epdiff_step_solve_bwd_op.register_kernel("cpu")(_epdiff_step_solve_bwd_plain)
+
+
+@epdiff_step_solve_bwd_op.register_fake
+def _(m, u, ty, tx, wgt, gm, gu, dt, radius):
+    return torch.empty_like(m), torch.empty_like(u)
+
+
 def epdiff_step_solve_bwd(m, u, ty, tx, wgt, gm, gu, dt: float, radius: int):
     """(g_m, g_u) of one fused-solve step from the cotangents (gm, gu) of
     its outputs. A CUDA tensor goes through kernel K7 (or raises), a CPU
@@ -324,34 +398,32 @@ def epdiff_step_solve_bwd(m, u, ty, tx, wgt, gm, gu, dt: float, radius: int):
                          "transposed one-sided stencil), got "
                          f"{tuple(m.shape[-2:])}")
     check_inputs("epdiff_step_solve_bwd", m=m, u=u, gm=gm, gu=gu)
-    if m.device.type == "cpu":
-        return _epdiff_step_solve_bwd_plain(m, u, ty, tx, wgt, gm, gu, dt,
-                                            radius)
-    return _epdiff_step_solve_bwd_cuda(m, u, ty, tx, wgt, gm, gu, dt, radius)
+    require_cpu_or_cuda("epdiff_step_solve_bwd", m=m, u=u, gm=gm, gu=gu)
+    return epdiff_step_solve_bwd_op(m, u, ty, tx, wgt, gm, gu, float(dt),
+                                    int(radius))
 
 
-class EPDiffStepSolve(torch.autograd.Function):
-    """K6 forward, K7 backward. Saves only (m, u): the backward recomputes
-    v. The solve's operands are constants without gradients, kept on the
-    context; a cotangent that arrives as None is zeros."""
+def _epdiff_step_solve_setup(ctx, inputs, output):
+    """Saves only (m, u): the backward recomputes v. The solve's operands
+    are constants without gradients, kept on the context."""
+    m, u, ty, tx, wgt, dt, radius = inputs
+    ctx.dt, ctx.radius = dt, radius
+    ctx.operands = (ty, tx, wgt)
+    ctx.save_for_backward(m, u)
 
-    @staticmethod
-    def forward(ctx, m, u, ty, tx, wgt, dt: float, radius: int):
-        ctx.dt, ctx.radius = dt, radius
-        ctx.operands = (ty, tx, wgt)
-        ctx.save_for_backward(m, u)
-        if m.device.type == "cpu":
-            return _epdiff_step_solve_plain(m, u, ty, tx, wgt, dt, radius)
-        return _epdiff_step_solve_cuda(m, u, ty, tx, wgt, dt, radius)
 
-    @staticmethod
-    def backward(ctx, gm, gu):
-        m, u = ctx.saved_tensors
-        gm = torch.zeros_like(m) if gm is None else gm.contiguous()
-        gu = torch.zeros_like(u) if gu is None else gu.contiguous()
-        g_m, g_u = epdiff_step_solve_bwd(m, u, *ctx.operands, gm, gu, ctx.dt,
-                                         ctx.radius)
-        return g_m, g_u, None, None, None, None, None
+def _epdiff_step_solve_backward(ctx, gm, gu):
+    """K7; a cotangent that arrives as None is zeros."""
+    m, u = ctx.saved_tensors
+    gm = torch.zeros_like(m) if gm is None else gm.contiguous()
+    gu = torch.zeros_like(u) if gu is None else gu.contiguous()
+    g_m, g_u = epdiff_step_solve_bwd(m, u, *ctx.operands, gm, gu, ctx.dt,
+                                     ctx.radius)
+    return g_m, g_u, None, None, None, None, None
+
+
+epdiff_step_solve_fwd_op.register_autograd(
+    _epdiff_step_solve_backward, setup_context=_epdiff_step_solve_setup)
 
 
 def epdiff_step_solve(m: torch.Tensor, u: torch.Tensor, dt: float,
@@ -366,4 +438,4 @@ def epdiff_step_solve(m: torch.Tensor, u: torch.Tensor, dt: float,
     _check_step_inputs("epdiff_step_solve_fwd", radius, m=m, u=u)
     h, w = m.shape[-2:]
     ty, tx, wgt = _solve_operands(h, w, alpha, gamma, power, m.device)
-    return EPDiffStepSolve.apply(m, u, ty, tx, wgt, dt, radius)
+    return epdiff_step_solve_fwd_op(m, u, ty, tx, wgt, float(dt), int(radius))

@@ -28,6 +28,7 @@ _device_consts: Dict[tuple, torch.Tensor] = {}
 
 
 def _const(device: torch.device, key: tuple, make) -> torch.Tensor:
+    """``make()`` (a host array) on ``device``, built once per key."""
     k = (str(device),) + key
     t = _device_consts.get(k)
     if t is None:
@@ -35,7 +36,10 @@ def _const(device: torch.device, key: tuple, make) -> torch.Tensor:
         # later autograd caller may save it for backward
         with torch.inference_mode(False):
             t = torch.as_tensor(make()).to(device)
-        _device_consts[k] = t
+        # under torch.export's tracing the tensor is fake and the program
+        # keeps it as a constant; only real tensors may outlive the trace
+        if not torch.compiler.is_compiling():
+            _device_consts[k] = t
     return t
 
 

@@ -18,11 +18,12 @@ SVD, for numpy arrays and tensors.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from cardiax_torch.ops.fluid_metric import _const
 
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # XLA's f32 erfinv (Giles' single-precision polynomial), for w = -log1p(-x^2)
@@ -80,11 +81,10 @@ def jax_normal_f32(t: int, rank: int) -> np.ndarray:
     return (np.float32(np.sqrt(2)) * _erfinv_f32(u)).reshape(t, rank)
 
 
-@functools.lru_cache(maxsize=None)
 def start_matrix(t: int, rank: int, device=None) -> torch.Tensor:
     """The (t, rank) start matrix on ``device`` (cached: one host copy)."""
-    with torch.inference_mode(False):     # a normal tensor, even if first
-        return torch.from_numpy(jax_normal_f32(t, rank)).to(device)
+    return _const(torch.device(device or "cpu"), ("start", t, rank),
+                  lambda: jax_normal_f32(t, rank))
 
 
 def svd_denoise(x, rank: int = 3):

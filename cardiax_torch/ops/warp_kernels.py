@@ -11,9 +11,13 @@ kernels are in ``cardiax_torch/csrc/mc_warp.cu``; ``_mc_warp_plain``,
 ``_mc_warp_disp_bwd_plain`` and ``_mc_warp_fused_bwd_plain`` are the same
 functions in plain PyTorch, used for CPU tensors and as the kernels' checks.
 
-``MCWarp`` ties them into autograd: K1 forward; backward K4 (d/d disp only)
-when the field is data (``img_const=True``, as the final image warp of the
-joint network), else K5 (d/d field, and d/d disp when it is wanted). The
+Each kernel is a ``torch.library`` custom op (``cardiax_torch::mc_warp_fwd``,
+``mc_warp_disp_bwd``, ``mc_warp_fused_bwd``) with a CUDA implementation (the
+kernel), a CPU one (the plain version) and a fake one (the output shapes,
+for ``torch.export``), so an exported program holds the kernels. K1's op
+carries its backward (``register_autograd``): K4 (d/d disp only) when the
+field is data (``img_const=True``, as the final image warp of the joint
+network), else K5 (d/d field, and d/d disp when it is wanted). The
 TPU picks among its full-frame, multi-channel and row-tiled kernels by VMEM
 size; here the same three kernels serve every frame size and channel count.
 
@@ -28,7 +32,7 @@ import ctypes
 import torch
 
 from cardiax_torch.kernels.build import (check, check_inputs, load_library,
-                                         require_cuda)
+                                         require_cpu_or_cuda, require_cuda)
 from cardiax_torch.ops import counters
 from cardiax_torch.ops.warp import gather_taps, sample_coords
 
@@ -161,20 +165,6 @@ def _mc_warp_disp_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
     return gdisp
 
 
-def mc_warp_disp_bwd(field: torch.Tensor, disp: torch.Tensor,
-                     g: torch.Tensor, radius: int) -> torch.Tensor:
-    """d/d disp (N, 2, H, W) of the warp, given its output's cotangent ``g``
-    (N, C, H, W). A CUDA tensor goes through kernel K4 (or raises), a CPU
-    tensor through ``_mc_warp_disp_bwd_plain``."""
-    if g.shape != field.shape:
-        raise ValueError(f"mc_warp_disp_bwd: g {tuple(g.shape)} must match "
-                         f"field {tuple(field.shape)}")
-    check_inputs("mc_warp_disp_bwd", field=field, disp=disp, g=g)
-    if field.device.type == "cpu":
-        return _mc_warp_disp_bwd_plain(field, disp, g, radius)
-    return _mc_warp_disp_bwd_cuda(field, disp, g, radius)
-
-
 def _mc_warp_fused_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
                             g: torch.Tensor, radius: int,
                             with_disp: bool = True):
@@ -196,6 +186,103 @@ def _mc_warp_fused_bwd_cuda(field: torch.Tensor, disp: torch.Tensor,
     return gfield, gdisp
 
 
+# --------------------------------------------------------------------------- #
+# The kernels as custom ops (namespace ``cardiax_torch``, the names of          #
+# ``counters.KERNELS``): the CUDA implementation launches the kernel and counts #
+# it, the CPU one is the plain version, the fake one gives ``torch.export`` the #
+# output shapes without reading a pointer                                      #
+# --------------------------------------------------------------------------- #
+
+@torch.library.custom_op("cardiax_torch::mc_warp_fwd", mutates_args=(),
+                         device_types="cuda")
+def mc_warp_fwd_op(field: torch.Tensor, disp: torch.Tensor,
+                   radius: int) -> torch.Tensor:
+    return _mc_warp_cuda(field, disp, radius)
+
+
+mc_warp_fwd_op.register_kernel("cpu")(_mc_warp_plain)
+
+
+@mc_warp_fwd_op.register_fake
+def _(field, disp, radius):
+    return torch.empty_like(field)
+
+
+@torch.library.custom_op("cardiax_torch::mc_warp_disp_bwd", mutates_args=(),
+                         device_types="cuda")
+def mc_warp_disp_bwd_op(field: torch.Tensor, disp: torch.Tensor,
+                        g: torch.Tensor, radius: int) -> torch.Tensor:
+    return _mc_warp_disp_bwd_cuda(field, disp, g, radius)
+
+
+mc_warp_disp_bwd_op.register_kernel("cpu")(_mc_warp_disp_bwd_plain)
+
+
+@mc_warp_disp_bwd_op.register_fake
+def _(field, disp, g, radius):
+    return torch.empty_like(disp)
+
+
+# an op returns tensors only: d/d disp not asked for comes back empty
+@torch.library.custom_op("cardiax_torch::mc_warp_fused_bwd", mutates_args=(),
+                         device_types="cuda")
+def mc_warp_fused_bwd_op(field: torch.Tensor, disp: torch.Tensor,
+                         g: torch.Tensor, radius: int, with_disp: bool
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    gfield, gdisp = _mc_warp_fused_bwd_cuda(field, disp, g, radius, with_disp)
+    return gfield, field.new_empty(0) if gdisp is None else gdisp
+
+
+@mc_warp_fused_bwd_op.register_kernel("cpu")
+def _(field, disp, g, radius, with_disp):
+    gfield, gdisp = _mc_warp_fused_bwd_plain(field, disp, g, radius,
+                                             with_disp)
+    return gfield, field.new_empty(0) if gdisp is None else gdisp
+
+
+@mc_warp_fused_bwd_op.register_fake
+def _(field, disp, g, radius, with_disp):
+    return (torch.empty_like(field),
+            torch.empty_like(disp) if with_disp else field.new_empty(0))
+
+
+def _mc_warp_setup(ctx, inputs, output):
+    field, disp, radius = inputs
+    ctx.radius = radius
+    ctx.save_for_backward(field, disp)
+
+
+def _mc_warp_backward(ctx, g):
+    """K5 where the field needs its gradient, else K4 (d/d disp only)."""
+    field, disp = ctx.saved_tensors
+    want_field, want_disp = ctx.needs_input_grad[:2]
+    g = g.contiguous()
+    gfield = gdisp = None
+    if want_field:
+        gfield, gdisp = mc_warp_fused_bwd(field, disp, g, ctx.radius,
+                                          with_disp=want_disp)
+    elif want_disp:
+        gdisp = mc_warp_disp_bwd(field, disp, g, ctx.radius)
+    return gfield, gdisp, None
+
+
+mc_warp_fwd_op.register_autograd(_mc_warp_backward,
+                                 setup_context=_mc_warp_setup)
+
+
+def mc_warp_disp_bwd(field: torch.Tensor, disp: torch.Tensor,
+                     g: torch.Tensor, radius: int) -> torch.Tensor:
+    """d/d disp (N, 2, H, W) of the warp, given its output's cotangent ``g``
+    (N, C, H, W). A CUDA tensor goes through kernel K4 (or raises), a CPU
+    tensor through ``_mc_warp_disp_bwd_plain``."""
+    if g.shape != field.shape:
+        raise ValueError(f"mc_warp_disp_bwd: g {tuple(g.shape)} must match "
+                         f"field {tuple(field.shape)}")
+    check_inputs("mc_warp_disp_bwd", field=field, disp=disp, g=g)
+    require_cpu_or_cuda("mc_warp_disp_bwd", field=field, disp=disp, g=g)
+    return mc_warp_disp_bwd_op(field, disp, g, int(radius))
+
+
 def mc_warp_fused_bwd(field: torch.Tensor, disp: torch.Tensor,
                       g: torch.Tensor, radius: int, with_disp: bool = True):
     """(d/d field, d/d disp or None) of the warp, given its output's
@@ -206,35 +293,10 @@ def mc_warp_fused_bwd(field: torch.Tensor, disp: torch.Tensor,
         raise ValueError(f"mc_warp_fused_bwd: g {tuple(g.shape)} must match "
                          f"field {tuple(field.shape)}")
     check_inputs("mc_warp_fused_bwd", field=field, disp=disp, g=g)
-    if field.device.type == "cpu":
-        return _mc_warp_fused_bwd_plain(field, disp, g, radius, with_disp)
-    return _mc_warp_fused_bwd_cuda(field, disp, g, radius, with_disp)
-
-
-class MCWarp(torch.autograd.Function):
-    """K1 forward; K5 backward where the field needs its gradient, else K4
-    (d/d disp only)."""
-
-    @staticmethod
-    def forward(ctx, field, disp, radius: int):
-        ctx.radius = radius
-        ctx.save_for_backward(field, disp)
-        if field.device.type == "cpu":
-            return _mc_warp_plain(field, disp, radius)
-        return _mc_warp_cuda(field, disp, radius)
-
-    @staticmethod
-    def backward(ctx, g):
-        field, disp = ctx.saved_tensors
-        want_field, want_disp = ctx.needs_input_grad[:2]
-        g = g.contiguous()
-        gfield = gdisp = None
-        if want_field:
-            gfield, gdisp = mc_warp_fused_bwd(field, disp, g, ctx.radius,
-                                              with_disp=want_disp)
-        elif want_disp:
-            gdisp = mc_warp_disp_bwd(field, disp, g, ctx.radius)
-        return gfield, gdisp, None
+    require_cpu_or_cuda("mc_warp_fused_bwd", field=field, disp=disp, g=g)
+    gfield, gdisp = mc_warp_fused_bwd_op(field, disp, g, int(radius),
+                                         bool(with_disp))
+    return gfield, gdisp if with_disp else None
 
 
 def bilinear_warp_banded_multi(field: torch.Tensor, disp: torch.Tensor,
@@ -255,10 +317,11 @@ def bilinear_warp_banded_multi(field: torch.Tensor, disp: torch.Tensor,
     if radius < 1:
         raise ValueError(f"mc_warp_fwd: radius must be >= 1, got {radius}")
     check_inputs("mc_warp_fwd", field=field, disp=disp)
+    require_cpu_or_cuda("mc_warp_fwd", field=field, disp=disp)
     if img_const:
         field = field.detach()
-    out = MCWarp.apply(field.reshape(-1, c, h, w), disp.reshape(-1, 2, h, w),
-                       radius)
+    out = mc_warp_fwd_op(field.reshape(-1, c, h, w),
+                         disp.reshape(-1, 2, h, w), int(radius))
     return out.reshape(field.shape)
 
 

@@ -79,6 +79,15 @@ class Scheme:
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         raise NotImplementedError
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        """Each model's forward arguments for the compiled export
+        (``save_model`` methods ``jit``/``onnx``), from one batch on the
+        device. Schemes override; a model missing from the dict keeps its
+        state dict only, with a warning."""
+        return {}
+
     def visualize(self, batch: Dict[str, Any], preds_np: Dict[str, Any],
                   out_path) -> Optional[str]:
         """The periodic training-time figure: the strain matrix with the GT

@@ -81,6 +81,18 @@ class JointRegistrationRegressionScheme(Scheme):
             return torch.cat([disp, pad], dim=2)
         return disp[:, :, :f]
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        """The flattened (src, tar) pairs for the registration model; for
+        ``LMA`` the video of a zero displacement (S*P, 2, H, W)."""
+        s, p = arrays["source_img"].shape[:2]
+        src = _flatten_pairs(arrays["source_img"])
+        tar = _flatten_pairs(arrays["target_img"])
+        disp = src.new_zeros(src.shape[0], 2, *src.shape[-2:])
+        return {self._rkey(modules): (src, tar),
+                "LMA": (self._make_video(disp, (s, p)),)}
+
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         s, p = arrays["source_img"].shape[:2]

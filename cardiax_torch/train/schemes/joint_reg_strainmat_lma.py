@@ -38,6 +38,19 @@ class JointRegisterStrainmatLMAScheme(Scheme):
         super().__init__(trainer_config, full_config)
         self.lma_threshold = float(self.trainer_config.get("LMA_threshold", 20))
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        """(src, tar) of the Lagrangian pair split for the joint network;
+        for ``LMA`` zeros of its strain matrix's shape (B, 1, S, Ts), read
+        from the network's configuration, so no forward (and no kernel)
+        runs (JAX takes the shape from an abstract trace)."""
+        src, tar = _lagrangian_pairs(arrays["cine_myo_mask"])
+        net = modules["joint_register_strainmat"]
+        sm = src.new_zeros(src.shape[0], 1, net.n_sectors,
+                           net.n_strain_matrix_frames)
+        return {"joint_register_strainmat": (src, tar), "LMA": (sm,)}
+
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         src, tar = _lagrangian_pairs(arrays["cine_myo_mask"])

@@ -35,6 +35,11 @@ class LMAScheme(Scheme):
         return torch.cat([arrays["displacement_field_X"],
                           arrays["displacement_field_Y"]], dim=1)
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        return {"LMA": (self._input(arrays),)}
+
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         preds = modules["LMA"](self._input(arrays))

@@ -45,6 +45,12 @@ class RegScheme(Scheme):
             self.model_key = next(iter(modules))
         return self.model_key
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        return {self._key(modules): (arrays["source_img"],
+                                     arrays["target_img"])}
+
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         src, tar = arrays["source_img"], arrays["target_img"]

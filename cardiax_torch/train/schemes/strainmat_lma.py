@@ -32,6 +32,17 @@ class StrainMatLMAScheme(Scheme):
                                    "weight": 0.005, "enable": True},
             }
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        """The displacement for ``strain``; for ``LMA`` zeros of the strain
+        matrix's shape (B, 1, S, T), which one forward of the strain net
+        gives (JAX takes it from an abstract trace)."""
+        disp = arrays["displacement_field"]
+        with torch.no_grad():
+            sm = modules["strain"](disp)["strainmat"]
+        return {"strain": (disp,), "LMA": (torch.zeros_like(sm)[:, None],)}
+
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         strainmat = modules["strain"](arrays["displacement_field"])["strainmat"]

@@ -38,6 +38,11 @@ class StrainMatPredScheme(Scheme):
                 if "masks_to_strain_mat" in modules else next(iter(modules))
         return self.model_key
 
+    def example_model_args(self, modules: Dict[str, Any],
+                           arrays: Dict[str, torch.Tensor]
+                           ) -> Dict[str, tuple]:
+        return {self._key(modules): (arrays["displacement_field"],)}
+
     def forward(self, modules: Dict[str, Any], arrays: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         preds = modules[self._key(modules)](arrays["displacement_field"])

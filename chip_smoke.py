@@ -125,7 +125,21 @@ prints no result without CUDA. Phases, one line each:
    (ResNet3D) over 2 folds of synthetic subjects at 1 epoch each: finite
    ``fold{i}/`` metrics and their average, each fold's exact K1-K4
    launches;
-13. the kernel table as one JSON line, then the result line
+13. export: ``cardiax_torch.main.run`` on configs/joint.json at full width
+   as written but for data, split, epochs (2: the momentum head is zero at
+   init) and saving_dir, with ``saving.save_model_method: "jit"``; the
+   joint network exported once more with ``shooting._FUSED_SOLVE``; a
+   fresh ``python3`` that imports only ``cardiax_torch`` loads the three
+   ``.pt2`` programs and calls each on a held test batch: exact launches
+   (the joint program 5 K2 and 1 K1, the LMA program none, the
+   fused-solve one 5 K6 and 1 K1), outputs against the eager modules
+   loaded from the ``.pt`` files (float32 registration outputs within
+   1e-5 of their range, the bf16-trunk ones within 1.9e-2); a
+   ``model_zip_state_dict`` export (``csrc/*.cu``, ``params.pt`` equal to
+   the state dict); the 3D activation map of the run's ``val_pred.npy``;
+   export time, ``.pt2`` size, load time, and one call exported against
+   eager in turns (host and device time);
+14. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` also writes ``torch.profiler`` tables of eval steps and
@@ -957,7 +971,7 @@ def named_counts():
 def plain_path(sh, ek, wk):
     """The shooting and every banded warp through the plain versions
     (autograd of the plain forwards), so no kernel launches."""
-    saved = sh.epdiff_step, sh.epdiff_step_solve, wk.MCWarp
+    saved = sh.epdiff_step, sh.epdiff_step_solve, wk.mc_warp_fwd_op
 
     def step_solve_plain(m, u, dt, radius, alpha, gamma, power):
         ops = ek._solve_operands(*m.shape[-2:], alpha, gamma, power,
@@ -968,11 +982,10 @@ def plain_path(sh, ek, wk):
     try:
         sh.epdiff_step = ek._epdiff_step_plain
         sh.epdiff_step_solve = step_solve_plain
-        wk.MCWarp = types.SimpleNamespace(
-            apply=lambda f, d, radius: wk._mc_warp_plain(f, d, radius))
+        wk.mc_warp_fwd_op = wk._mc_warp_plain
         yield
     finally:
-        sh.epdiff_step, sh.epdiff_step_solve, wk.MCWarp = saved
+        sh.epdiff_step, sh.epdiff_step_solve, wk.mc_warp_fwd_op = saved
     torch.cuda.synchronize()
     require(counts() == before, "the plain run launched a kernel")
 
@@ -2951,6 +2964,296 @@ def run_kfold_phase(tmp: Path, card: str):
     return launches
 
 
+# the fresh process of the export phase: it imports only ``cardiax_torch``,
+# loads the three programs, calls each once on the held batch with the
+# launch counts from 0, and writes the outputs back
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+from cardiax_torch.io.export import load_exported
+from cardiax_torch.ops import counters
+run_dir = sys.argv[1]
+args = torch.load(run_dir + "/export_args.pt")
+outs, launches, load_s = {}, {}, {}
+for name, path in json.loads(sys.argv[2]).items():
+    t0 = time.perf_counter()
+    program = load_exported(path)
+    load_s[name] = time.perf_counter() - t0
+    counters.reset()
+    outs[name] = program.call(*args[name])
+    torch.cuda.synchronize()
+    launches[name] = counters.snapshot()
+torch.save(outs, run_dir + "/export_out.pt")
+imported = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "flax", "cardiax"})
+print(json.dumps({"launches": launches, "load_s": load_s, "imported": imported}))
+"""
+
+# the flagship's outputs computed in float32 end to end, and those that pass
+# through its bf16 conv trunks (the strain head, NetStrainMat2LMA)
+F32_OUTPUTS = ("deformed_source", "velocity", "momentum", "displacement")
+
+
+def range_err(got, want) -> float:
+    """max |got - want| over the range of want."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()
+                 / (want.max() - want.min()).clamp_min(1e-12))
+
+
+def gate_outputs(label, got, want) -> str:
+    """The float32 registration outputs within 1e-5 of each output's range,
+    the bf16-trunk ones within the eval step's 1.9e-2. Returns the text."""
+    require(set(got) == set(want), f"{label}: outputs {sorted(got)} != "
+                                   f"{sorted(want)}")
+    errs = {}
+    for k in sorted(want):
+        tol = 1e-5 if k in F32_OUTPUTS else 1.9e-2
+        errs[k] = range_err(got[k], want[k])
+        require(torch.isfinite(got[k]).all() and errs[k] <= tol,
+                f"{label}: {k} off by {errs[k]:.3e} of its range (> {tol})")
+    return ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+
+def export_turns(label, eager, exported, card) -> str:
+    """Host ms of one call in turns eager, exported, exported, eager (10
+    synchronised calls a turn) and the device busy ms of a call from the
+    profiler (3 calls), for each."""
+    fns = {"eager": eager, "exported": exported}
+    host = {"eager": [], "exported": []}
+    for w in ("eager", "exported", "exported", "eager"):
+        host[w].append(timed_ms(fns[w], 1, 10))
+    parts = []
+    for w in ("eager", "exported"):
+        busy = profile_steps(fns[w])[0]
+        parts.append(f"{w} host {', '.join(f'{x:.3f}' for x in host[w])} "
+                     f"ms, device busy "
+                     f"{'not measured' if busy is None else f'{busy:.3f} ms'}")
+    return (f"{label} one call ({card}; turns eager, exported, exported, "
+            f"eager): " + "; ".join(parts))
+
+
+def ellipsoid_mesh(n_theta=16, n_z=8, rx=20.0, ry=20.0, rz=30.0):
+    """The closed ellipsoid that ``tests/test_plot.py`` stands in for a
+    heart STL."""
+    tris = []
+    zs = np.linspace(-rz, rz, n_z)
+    for zi in range(n_z - 1):
+        r0 = np.sqrt(max(1e-6, 1 - (zs[zi] / rz) ** 2))
+        r1 = np.sqrt(max(1e-6, 1 - (zs[zi + 1] / rz) ** 2))
+        for ti in range(n_theta):
+            t0 = 2 * np.pi * ti / n_theta
+            t1 = 2 * np.pi * (ti + 1) / n_theta
+            p00 = [rx * r0 * np.cos(t0), ry * r0 * np.sin(t0), zs[zi]]
+            p01 = [rx * r0 * np.cos(t1), ry * r0 * np.sin(t1), zs[zi]]
+            p10 = [rx * r1 * np.cos(t0), ry * r1 * np.sin(t0), zs[zi + 1]]
+            p11 = [rx * r1 * np.cos(t1), ry * r1 * np.sin(t1), zs[zi + 1]]
+            tris.append([p00, p01, p10])
+            tris.append([p01, p11, p10])
+    return np.asarray(tris, np.float32)
+
+
+def run_export(tmp: Path, card: str):
+    """``main.run`` on configs/joint.json at full width, trained for 2
+    epochs (the momentum head is zero at init: an untrained export would
+    hold a zero displacement) with ``saving.save_model_method: "jit"``:
+    ``model-joint_register_strainmat.pt2`` and ``model-LMA.pt2`` beside
+    the ``.pt`` state dicts; with ``shooting._FUSED_SOLVE`` the joint
+    network exported once more. A fresh process that imports only
+    ``cardiax_torch`` loads the three programs and calls each on a held
+    test batch. Gates: the outputs against the eager modules loaded from
+    the ``.pt`` files (``gate_outputs``), the launches of each call (the
+    joint program 5 K2 + 1 K1, the LMA program none, the fused-solve one 5
+    K6 and no K2; no backward kernel), a ``model_zip_state_dict`` export
+    holding ``csrc/*.cu`` and ``params.pt`` equal to the state dict, and
+    the 3D activation map from the run's ``val_pred.npy``. Returns the
+    launches of the joint and LMA calls, and of the fused-solve call."""
+    from cardiax_torch import main as port_main
+    from cardiax_torch.data.synthetic import make_dataset, save_npy
+    from cardiax_torch.io import export as texport
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.models import build_model
+    from cardiax_torch.ops import counters
+    from cardiax_torch.ops import shooting as sh
+    from cardiax_torch.plot.activation_map import (
+        build_3D_activation_map_multiple, generate_3D_activation_map)
+    from cardiax_torch.train.schemes.joint_reg_strainmat_lma import \
+        _lagrangian_pairs
+    cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
+    t_myo = int(cfg["datasets"]["train"]["n_myo_frames_to_use_for_regression"])
+    npy = tmp / "export_slices.npy"
+    save_npy(str(npy), make_dataset(n_subjects=6, slices_per_subject=5,
+                                    h=128, w=128, n_frames=t_myo, seed=29))
+    run_dir = tmp / "export_run"
+    changes = {
+        "training.epochs": 2,
+        "saving.saving_dir": str(run_dir),
+        "saving.save_final_model": True,
+        "saving.save_model_method": "jit",
+        "data.npy_filename": str(npy),
+        "data_split": {"method": "by_count", "splits": {
+            "train": {"count": 20}, "val": {"count": 5},
+            "test": {"count": 5}}},
+    }
+    set_fields(cfg, changes)
+    print(f"export: configs/joint.json with {json.dumps(changes)}")
+
+    # main.run, each save_model call timed
+    exports = []
+    save_model = texport.save_model
+
+    def timed_save_model(bundle, stem, method="state_dict", **kwargs):
+        t0 = time.perf_counter()
+        out = save_model(bundle, stem, method, **kwargs)
+        exports.append((Path(out).name, time.perf_counter() - t0,
+                        Path(out).stat().st_size))
+        return out
+
+    texport.save_model = timed_save_model
+    try:
+        t0 = time.perf_counter()
+        port_main.run(copy.deepcopy(cfg))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        texport.save_model = save_model
+    programs = {"joint": run_dir / "model-joint_register_strainmat.pt2",
+                "LMA": run_dir / "model-LMA.pt2"}
+    require(all(p.is_file() for p in programs.values()),
+            f"export: main.run wrote {sorted(x.name for x in run_dir.iterdir())}")
+
+    # the eager modules from the state dicts, and a held test batch
+    n_pairs = t_myo - 1
+    eager = {}
+    for name, mc in cfg["networks"].items():
+        bundle = build_model(mc, n_pairs=n_pairs)
+        bundle.module.load_state_dict(torch.load(
+            run_dir / f"model-{name}.pt", weights_only=True))
+        eager[name] = bundle.module.cuda().eval()
+    held = JointDataset(make_dataset(n_subjects=2, slices_per_subject=5,
+                                     h=128, w=128, n_frames=t_myo, seed=31),
+                        dataset_config=cfg["datasets"]["test"])
+    batch = next(iter(Batcher(held, 10)))
+    vol = torch.from_numpy(batch["cine_myo_mask"]).cuda()   # (10,1,T,H,W)
+    src, tar = _lagrangian_pairs(vol)
+    with torch.no_grad():
+        want_joint = eager["joint_register_strainmat"](src, tar)
+        sm = want_joint["strain_matrix"].contiguous()
+        want = {"joint": want_joint, "LMA": eager["LMA"](sm)}
+    require(float(want_joint["displacement"].abs().max()) > 0,
+            "export: the trained network's displacement is zero")
+    args = {"joint": (src, tar), "LMA": (sm,)}
+
+    # the fused-solve export of the joint network, and its eager output
+    saved_flag = sh._FUSED_SOLVE
+    sh._FUSED_SOLVE = True
+    try:
+        t0 = time.perf_counter()
+        programs["solve"] = texport.save_model(
+            types.SimpleNamespace(module=eager["joint_register_strainmat"]),
+            run_dir / "export_solve" / "model-joint_register_strainmat",
+            "jit", example_args=(src, tar))
+        solve_export_s = time.perf_counter() - t0
+        zero_counts()
+        with torch.no_grad():
+            want["solve"] = eager["joint_register_strainmat"](src, tar)
+        torch.cuda.synchronize()
+        eager_solve_launches = named_counts()
+    finally:
+        sh._FUSED_SOLVE = saved_flag
+    args["solve"] = (src, tar)
+    torch.save(args, run_dir / "export_args.pt")
+
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_CHILD, str(run_dir),
+         json.dumps({k: str(v) for k, v in programs.items()})],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"export: the fresh process failed:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(not child["imported"],
+            f"export: the fresh process imported {child['imported']}")
+    got = torch.load(run_dir / "export_out.pt")
+    errs = {k: gate_outputs(f"export {k}", got[k], want[k]) for k in want}
+
+    n_steps = n_euler_steps(cfg)
+    none = dict.fromkeys(counters.KERNELS, 0)
+    expect = {"joint": {**none, "epdiff_step_fwd": n_steps, "mc_warp_fwd": 1},
+              "LMA": none,
+              "solve": {**none, "epdiff_step_solve_fwd": n_steps,
+                        "mc_warp_fwd": 1}}
+    for k, e in expect.items():
+        require(child["launches"][k] == e,
+                f"export {k}: launches {child['launches'][k]} != {e}")
+    require(eager_solve_launches == expect["solve"],
+            f"export: the eager solve path launched {eager_solve_launches}")
+
+    # the zip: the sources, the kernels' among them, and the state dict
+    zipped = texport.save_model(
+        types.SimpleNamespace(module=eager["LMA"]), run_dir / "zipped",
+        "model_zip_state_dict")
+    import io
+    import zipfile
+    with zipfile.ZipFile(zipped) as z:
+        names = set(z.namelist())
+        params = torch.load(io.BytesIO(z.read("params.pt")),
+                            weights_only=True)
+    cu = sorted(n for n in names if n.startswith("cardiax_torch/csrc/")
+                and n.endswith(".cu"))
+    require({"cardiax_torch/csrc/mc_warp.cu",
+             "cardiax_torch/csrc/epdiff_step.cu"} <= set(cu),
+            f"export: the zip holds {cu}")
+    state = eager["LMA"].state_dict()
+    require(params.keys() == state.keys()
+            and all(torch.equal(params[k], state[k].cpu()) for k in state),
+            "export: the zip's params.pt is not the state dict")
+
+    # the 3D activation map from the card's TOS predictions
+    preds = list(np.load(run_dir / "val_pred.npy", allow_pickle=True))
+    maps = build_3D_activation_map_multiple(preds, ellipsoid_mesh())
+    require(maps and all(
+        np.isfinite(m["face_colors"]).all()
+        and m["face_colors"].min() >= 0 and m["face_colors"].max() <= 1
+        for m in maps.values()), "export: activation map face colours")
+    by_subject = {}
+    for p in preds:
+        by_subject.setdefault(str(p["subject_id"]), []).append(
+            np.asarray(p["TOS_pred"]).ravel())
+    surfaces = {sid: generate_3D_activation_map(rows, list(range(len(rows))))
+                for sid, rows in by_subject.items()}
+    require(all(np.isfinite(s["tos"]).all() and s["tos"].min() >= 17.0
+                for s in surfaces.values()), "export: TOS surface")
+
+    # one call, exported against eager, in turns
+    loaded = {k: texport.load_exported(v) for k, v in programs.items()}
+    turns = []
+    for k, module in (("joint", eager["joint_register_strainmat"]),
+                      ("LMA", eager["LMA"])):
+        def run_eager(module=module, a=args[k]):
+            with torch.no_grad():
+                module(*a)
+        turns.append(export_turns(
+            f"export {k}", run_eager,
+            lambda p=loaded[k], a=args[k]: p.call(*a), card))
+    print(f"export: main.run 2 epochs x 2 train steps, then the val and "
+          f"test predictions and the saves, in {secs:.2f} s ({card}); "
+          f"save_model calls {', '.join(f'{n} {t:.3f} s {b / 1e6:.3f} MB' for n, t, b in exports)}; "
+          f"fused-solve export {solve_export_s:.3f} s "
+          f"{programs['solve'].stat().st_size / 1e6:.3f} MB; the fresh "
+          f"process loaded {', '.join(f'{k} in {v:.3f} s' for k, v in child['load_s'].items())} "
+          f"and launched {child['launches']}; outputs against the eager "
+          f"modules (of the range): {'; '.join(f'{k}: {v}' for k, v in errs.items())}; "
+          f"zip {zipped.stat().st_size / 1e6:.3f} MB with {len(names)} files, "
+          f"{cu}; activation maps of {len(maps)} subjects "
+          f"({sum(len(r) for r in by_subject.values())} val slices, "
+          f"{len(next(iter(maps.values()))['face_colors'])} faces)")
+    for line in turns:
+        print(line)
+    add = {k: child["launches"]["joint"][k] + child["launches"]["LMA"][k]
+           for k in counters.KERNELS}
+    return add, child["launches"]["solve"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -3008,6 +3311,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths["analytic"] = run_analytic(Path(tmp), card, args.profile)
         paths["kfold"] = run_kfold_phase(Path(tmp), card)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["export"], paths["export_solve"] = run_export(Path(tmp), card)
     # launches: K1-K4 from the flagship's training run, K5 from the ops
     # path (the only one that needs a field gradient), K6/K7 from the
     # fused-solve run; every path's counts beside them (reg and

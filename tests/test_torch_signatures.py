@@ -95,6 +95,53 @@ from cardiax_torch.data.synthetic import make_dataset
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.models.joint_net import JointRegisterStrainMatNet
 from cardiax_torch.train import build_trainer
+import cardiax.plot.activation_map as jam
+import cardiax.plot.colors as jcolors
+import cardiax.plot.strainmat as jstrainmat
+import cardiax.plot.tos_surface as jtos
+import cardiax.utils as jutils
+import cardiax.utils.dense as jdense
+import cardiax_torch.plot.activation_map as tam
+import cardiax_torch.plot.colors as tcolors
+import cardiax_torch.plot.strainmat as tstrainmat
+import cardiax_torch.plot.tos_surface as ttos
+import cardiax_torch.utils as tutils
+import cardiax_torch.utils.dense as tdense
+from cardiax.train.schemes.joint_reg_strainmat_lma import \
+    JointRegisterStrainmatLMAScheme as JaxJointScheme
+from cardiax_torch.train.schemes.joint_reg_strainmat_lma import \
+    JointRegisterStrainmatLMAScheme
+
+# the schemes' classes, port and JAX, by name
+SCHEMES = {"Scheme": (tengine.Scheme, jengine.Scheme),
+           "LMAScheme": (LMAScheme, JaxLMAScheme),
+           "RegScheme": (RegScheme, JaxRegScheme),
+           "StrainMatPredScheme": (StrainMatPredScheme,
+                                   JaxStrainMatPredScheme),
+           "StrainMatLMAScheme": (StrainMatLMAScheme, JaxStrainMatLMAScheme),
+           "JointRegisterStrainmatLMAScheme": (JointRegisterStrainmatLMAScheme,
+                                               JaxJointScheme),
+           "JointRegistrationRegressionScheme": (
+               JointRegistrationRegressionScheme, JaxJointRegressionScheme)}
+
+# the offline figures and DENSE helpers: (port module, JAX module, names)
+PLOT_FUNCTIONS = (
+    (tam, jam, ("stl_read", "stl_write", "extract_labeled_faces",
+                "rescale_vertices_to_include", "align_vertices_with_mesh",
+                "save_colored_obj", "build_3D_activation_map_single",
+                "build_3D_activation_map_multiple", "plot_3D_activation_map",
+                "generate_3D_activation_map")),
+    (tcolors, jcolors, ("get_cmap", "map_values_to_rgb")),
+    (ttos, jtos, ("text3d", "tos_3d_plot_interp")),
+    (tstrainmat, jstrainmat, ("visualize_strainmat_with_TOS",
+                              "visualize_pred_registration",
+                              "visualize_pred_sector_classification")),
+    (tutils, jutils, ("check_dict",)),
+    (tdense, jdense, ("mat2dict", "loadmat", "loadStrainMat", "saveTOS2Mat",
+                      "cart2pol", "pol2cart", "intersections", "spl2patchSA",
+                      "face_centers", "rectfv2rectfv", "getStrainMatFull",
+                      "SVDDenoise")),
+)
 
 # (port object, JAX object) by name
 PAIRS = {
@@ -253,6 +300,14 @@ PAIRS = {
     **{f"native.{fn}": (getattr(tnative, fn), getattr(jnative, fn))
        for fn in ("load_native", "native_available", "rotate_stack",
                   "roll_stack", "collate_pad")},
+    **{f"io.export.{fn}": (getattr(texport, fn), getattr(jexport, fn))
+       for fn in ("save_model", "load_exported", "validate_save_method")},
+    **{f"{cls}.example_model_args": (port.example_model_args,
+                                     ref.example_model_args)
+       for cls, (port, ref) in SCHEMES.items()},
+    **{f"{tmod.__name__.split('.', 1)[1]}.{fn}": (getattr(tmod, fn),
+                                                 getattr(jmod, fn))
+       for tmod, jmod, fns in PLOT_FUNCTIONS for fn in fns},
 }
 
 _FLAX = {"parent", "name"}
@@ -317,6 +372,9 @@ BY_DESIGN = {
         "of the step; the port replays one captured step a batch, so the "
         "key has no effect")
        for m in ("_build_epoch_fns", "_build_epoch_trainval_fn")},
+    **{f"{cls}.example_model_args": (
+        {"params"}, set(), "torch modules hold their parameters")
+       for cls in SCHEMES},
     "NetStrainMat2LMA.__init__": (_FLAX, set(), "flax's module plumbing"),
     "NetDisplacement2LMA.__init__": (
         _FLAX, {"frame_size"},
