@@ -17,6 +17,8 @@ from typing import Any, Dict, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from cardiax_torch.parallel.mesh import local_rows
+
 
 def epoch_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
     """The shuffle order of epoch ``epoch``: a pure function of (seed,
@@ -165,14 +167,19 @@ class DeviceBatcher:
     ``sample_mask`` marking the pads. Numeric fields become device tensors;
     other fields (strings, lists) stay on the host as per-item lists
     (``_meta``) and come with each batch as lists. Items must not change
-    between epochs, which every dataset of the port guarantees. JAX's
-    ``mesh`` argument is ``device`` here: one card, no sharding.
+    between epochs, which every dataset of the port guarantees.
+
+    With a ``mesh`` (``cardiax_torch.parallel``), every rank holds the
+    whole dataset on its own device, as JAX replicates it, and takes its
+    rows of each global batch: the same global epoch plan on every rank,
+    sliced in ``gather`` (whole where the batch does not divide the mesh,
+    JAX's replicated case). ``device`` defaults to the mesh's.
     """
 
     device_resident = True
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, device=None, epoch: int = 0):
+                 seed: int = 0, device=None, mesh=None, epoch: int = 0):
         n = len(dataset)
         if n == 0:
             raise ValueError("DeviceBatcher over an empty dataset")
@@ -188,7 +195,12 @@ class DeviceBatcher:
         # loader's seed and epoch counter and the streams stay aligned
         self.seed = int(seed)
         self._epoch = int(epoch)
-        self.device = torch.device(device if device is not None else "cpu")
+        if device is None:
+            device = mesh.device if mesh is not None else "cpu"
+        self.device = torch.device(device)
+        self.mesh = mesh
+        self._rows = local_rows(self.batch_size, mesh) \
+            if mesh is not None else None
         self._data = {k: torch.from_numpy(np.ascontiguousarray(v))
                       .to(self.device) for k, v in numeric.items()}
 
@@ -226,7 +238,10 @@ class DeviceBatcher:
     def gather(self, idx: torch.Tensor, mask: torch.Tensor
                ) -> Dict[str, torch.Tensor]:
         """One batch of device tensors: every numeric field at ``idx`` (a
-        device int64 vector) and ``sample_mask``."""
+        device int64 vector) and ``sample_mask``; under a mesh, this rank's
+        rows of them."""
+        if self._rows is not None:
+            idx, mask = idx[self._rows], mask[self._rows]
         out = {k: v.index_select(0, idx) for k, v in self._data.items()}
         out["sample_mask"] = mask
         return out
@@ -237,6 +252,8 @@ class DeviceBatcher:
         mask_dev = torch.from_numpy(mask_mat).to(self.device)
         for i, idx in enumerate(idx_mat):
             batch: Dict[str, Any] = self.gather(idx_dev[i], mask_dev[i])
+            if self._rows is not None:
+                idx = idx[self._rows]
             for k, v in self._meta.items():     # host-side metadata lists
                 batch[k] = [v[int(j)] for j in idx]
             yield batch

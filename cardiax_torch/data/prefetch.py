@@ -7,10 +7,10 @@ memory and from there to the device on a side stream, ``depth`` batches
 ahead, and records an event after each batch's copies; the consumer's
 stream waits on that event before it touches the batch. On the CPU the
 fields become CPU tensors on the worker, with no stream. Errors on the
-worker re-raise in the consumer. JAX's ``mesh`` argument is ``device``
-here: one card, no sharding. The engine's step loop feeds every host
-loader through it on the card (``TrainerEngine._feed``), where JAX's engine
-never calls its own.
+worker re-raise in the consumer. With a ``mesh``, only this rank's rows
+of each batch cross (``parallel.shard_batch``'s rule). The engine's step
+loop feeds every host loader through it on the card
+(``TrainerEngine._feed``), where JAX's engine never calls its own.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from typing import Any, Dict, Iterator
 import numpy as np
 import torch
 
+from cardiax_torch.parallel.mesh import rank_rows
+
 _SENTINEL = object()
 
 
@@ -31,10 +33,11 @@ class PrefetchBatcher:
     numeric fields are tensors on ``device``, ``depth`` batches ahead.
     Non-numeric fields pass through host-side."""
 
-    def __init__(self, loader, device, depth: int = 2):
+    def __init__(self, loader, device, depth: int = 2, *, mesh=None):
         self.loader = loader
         self.device = torch.device(device)
         self.depth = max(1, int(depth))
+        self.mesh = mesh
 
     def __len__(self) -> int:
         return len(self.loader)
@@ -51,7 +54,8 @@ class PrefetchBatcher:
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
             for k, v in batch.items():
                 if isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
-                    t = torch.from_numpy(np.ascontiguousarray(v))
+                    t = torch.from_numpy(np.ascontiguousarray(
+                        rank_rows(v, self.mesh)))
                     if cuda:
                         t = t.pin_memory().to(self.device, non_blocking=True)
                     out[k] = t

@@ -8,8 +8,12 @@ or ``run_kfold(config, folds)``, where ``folds`` is a list of lists of
 subject regexes. Fold i: test = fold i, val = fold (i+1) % k, train = the
 rest (``data.split.SplitManager``); each fold's metrics carry the prefix
 ``fold{i}/`` and are averaged across folds
-(``losses.metrics.get_average_performance_dict``). ``device`` takes the
-place of JAX's ``mesh``: None means the card.
+(``losses.metrics.get_average_performance_dict``). ``mesh`` is JAX's
+(``cardiax_torch.parallel``: every fold trains data parallel over its
+ranks); None builds the mesh of ``config["parallel"]`` over this run's
+ranks, as ``cardiax_torch.main`` does (JAX's default is every device), so
+``torchrun --nproc-per-node N -m cardiax_torch.kfold ... --mesh-shape N``
+runs every fold over N ranks. ``device`` None means the card.
 """
 
 from __future__ import annotations
@@ -22,13 +26,15 @@ from cardiax_torch.data import load_data
 from cardiax_torch.data.datasets import build_datasets
 from cardiax_torch.data.split import SplitManager, split_data
 from cardiax_torch.losses.metrics import get_average_performance_dict
-from cardiax_torch.main import _first_item, _shapes
+from cardiax_torch.main import _first_item, _shapes, build_mesh
 from cardiax_torch.models import build_model
 from cardiax_torch.train import build_trainer
 
 
 def run_kfold(config: Dict[str, Any], folds: Sequence[Sequence[str]],
-              device=None) -> Dict[str, Any]:
+              device=None, mesh=None) -> Dict[str, Any]:
+    if mesh is None:
+        mesh = build_mesh(config, device)
     all_data = load_data(config["data"], config)
     manager = SplitManager(folds, config.get("data_split"))
     fold_performances: List[Dict[str, float]] = []
@@ -43,7 +49,7 @@ def run_kfold(config: Dict[str, Any], folds: Sequence[Sequence[str]],
                     for n, mc in config["networks"].items()}
         tcfg = dict(config["training"])
         tcfg["metric_prefix"] = prefix
-        trainer = build_trainer(tcfg, device, config)
+        trainer = build_trainer(tcfg, device, config, mesh=mesh)
         trained, tracker = trainer.train(models=networks, datasets=datasets,
                                          trainer_config=tcfg,
                                          full_config=config)

@@ -64,6 +64,18 @@ _CRITERIA: Dict[str, Callable] = {
 }
 
 
+def _rows(outputs: Dict[str, Any], targets: Dict[str, Any],
+          conf: Dict[str, Any]) -> int:
+    """The rows a term averages over where the targets hold no mask for
+    it: the leading dim of the tensor its criterion reads."""
+    criterion = conf.get("criterion", "MSELoss")
+    if criterion == "registration_reconstruction":
+        return targets[conf.get("target", "registration_target")].shape[0]
+    if criterion == "gradient_magnitude":
+        return outputs[conf.get("prediction", "deformed_source")].shape[0]
+    return outputs[conf["prediction"]].shape[0]
+
+
 def get_loss_function(criterion: str) -> Callable:
     if criterion not in _CRITERIA:
         raise KeyError(f"Unknown loss criterion {criterion!r}; "
@@ -80,12 +92,18 @@ class LossCalculator:
         self._fns = {name: get_loss_function(conf.get("criterion", "MSELoss"))
                      for name, conf in self.confs.items()}
 
-    def __call__(self, outputs: Dict[str, Any], targets: Dict[str, Any]
+    def __call__(self, outputs: Dict[str, Any], targets: Dict[str, Any],
+                 *, scale: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``scale`` (one factor a term, ``counts`` order) multiplies each
+        term's value before it is weighted: a data-parallel rank's share of
+        the global mean."""
         values: Dict[str, torch.Tensor] = {}
         total = None
-        for name, conf in self.confs.items():
+        for i, (name, conf) in enumerate(self.confs.items()):
             val = self._fns[name](outputs, targets, conf)
+            if scale is not None:
+                val = val * scale[i]
             values[name] = val
             term = float(conf.get("weight", 1.0)) * val
             total = term if total is None else total + term
@@ -93,6 +111,25 @@ class LossCalculator:
             total = torch.zeros((), dtype=torch.float32)
         values["total_loss"] = total
         return total, values
+
+    def counts(self, outputs: Dict[str, Any], targets: Dict[str, Any],
+               device) -> torch.Tensor:
+        """Each enabled term's denominator on this batch, in ``confs``
+        order, as one float32 vector on ``device``: the sum of its mask, or
+        its rows without one. Every criterion is such a count-normalised
+        sum, so a term's value times its count is its sum, which is what
+        adds up over the shards of a batch."""
+        out = []
+        for conf in self.confs.values():
+            mask = targets.get(conf.get("mask", "sample_mask"))
+            if mask is not None:
+                out.append(mask.float().sum())
+            else:
+                out.append(torch.full((), float(_rows(outputs, targets, conf)),
+                                      device=device))
+        if not out:
+            return torch.zeros((0,), device=device)
+        return torch.stack(out).to(device)
 
 
 class HardCodedLossCalculator:

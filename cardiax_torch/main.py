@@ -15,7 +15,14 @@ interrupted training run saves its models to ``saving_dir/interrupted``
 and re-raises (``saving.save_KeyboardInterrupt``, default true); a final
 save in a compiled ``saving.save_model_method`` (``jit``, ``onnx``) also
 writes each model as a ``torch.export`` program (``io/export.py``). The
-TPU lock and the device mesh of the JAX entry point have no counterpart.
+TPU lock of the JAX entry point has no counterpart.
+
+``config["parallel"]`` (``mesh_shape``, ``axis_names``: tuples or comma
+strings; ``--mesh-shape``) is the mesh of ranks, as JAX's mesh of devices:
+one process a card, started by ``torchrun --nproc-per-node N -m
+cardiax_torch.main ... --mesh-shape N`` (``parallel.distributed``). A mesh
+of more ranks than the run has raises. Rank 0 alone writes the run's files;
+every rank returns the same results.
 """
 
 from __future__ import annotations
@@ -85,6 +92,34 @@ def _load_params_into(networks: Dict[str, Any], path, seed: int) -> None:
             print(f"loaded params for {name} from {src}")
 
 
+def _tuple(value, kind):
+    """A ``parallel`` entry as a tuple: a comma string split, else as
+    given (None stays None)."""
+    if isinstance(value, str):
+        return tuple(kind(x) for x in value.split(",") if x)
+    return tuple(value) if value is not None else None
+
+
+def build_mesh(config: Dict[str, Any], device=None):
+    """The mesh of ``config["parallel"]`` over the ranks of this run,
+    joining their process group first (``initialize_distributed``); this
+    rank's device is ``device`` (None: its card, ``cuda:{LOCAL_RANK}``).
+    Prints JAX's ``mesh:`` line."""
+    from cardiax_torch.device import resolve_device
+    from cardiax_torch.parallel.distributed import initialize_distributed
+    from cardiax_torch.parallel.mesh import get_mesh, local_device, world
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = local_device()
+    initialize_distributed()
+    par = config.get("parallel", {}) or {}
+    mesh = get_mesh(_tuple(par.get("mesh_shape"), int),
+                    _tuple(par.get("axis_names"), str),
+                    devices=[dev] * world()[1])
+    print(f"mesh: {mesh.shape} over {mesh.world} devices ({dev.type})")
+    return mesh
+
+
 def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
     from cardiax_torch.data import load_data
     from cardiax_torch.data.datasets import build_datasets
@@ -92,12 +127,15 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
     from cardiax_torch.io.export import (save_predictions, save_trained_models,
                                          validate_save_method)
     from cardiax_torch.models import build_model
+    from cardiax_torch.parallel.mesh import barrier, writes_files
     from cardiax_torch.train import build_trainer
 
     # fail fast on what would only fail at the end of the run
     validate_save_method(config.get("saving"))
     training = config["training"]
-    trainer = build_trainer(training, device, config)
+    mesh = build_mesh(config, device)
+    writes = writes_files(mesh)
+    trainer = build_trainer(training, device, config, mesh=mesh)
 
     # 1. data
     all_data = load_data(config["data"], config)
@@ -142,7 +180,7 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
             # the interrupt. The modules hold the last completed step's
             # weights (a replayed CUDA graph updates them in place): wait
             # for the card, so that no replay is half written
-            if saving.get("save_KeyboardInterrupt", True):
+            if saving.get("save_KeyboardInterrupt", True) and writes:
                 if trainer.device.type == "cuda":
                     torch.cuda.synchronize(trainer.device)
                 save_trained_models(saving_dir / "interrupted", networks,
@@ -174,7 +212,9 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
         results[f"{target}_performance"] = perf
         if saving.get("save_prediction", True):
             fname = saving.get(f"{target}_save_filename", f"{target}_pred.npy")
-            save_predictions(preds, saving_dir / fname)
+            if writes:
+                save_predictions(preds, saving_dir / fname)
+            barrier(mesh)
             results[f"{target}_pred_path"] = str(saving_dir / fname)
 
     # 6. save models; a compiled method traces each model at one batch of
@@ -194,8 +234,10 @@ def run(config: Dict[str, Any], device=None) -> Dict[str, Any]:
                 example_args = trainer.scheme.example_model_args(
                     {n: b.module for n, b in networks.items()},
                     trainer.to_device(batch))
-        save_trained_models(saving_dir, networks, config, perf_all,
-                            example_args=example_args)
+        if writes:
+            save_trained_models(saving_dir, networks, config, perf_all,
+                                example_args=example_args)
+        barrier(mesh)
     if tracker is not None:
         tracker.finish()
     return results

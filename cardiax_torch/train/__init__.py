@@ -55,16 +55,20 @@ _SCHEME_REGISTRY = {
 
 
 def build_trainer(trainer_config: Dict[str, Any], device=None,
-                  full_config: Dict[str, Any] | None = None) -> TrainerEngine:
-    """``build_trainer(trainer_config, device, full_config)``; ``device``
-    None means the card (raises without CUDA)."""
+                  full_config: Dict[str, Any] | None = None,
+                  mesh=None) -> TrainerEngine:
+    """``build_trainer(trainer_config, device, full_config, mesh)``;
+    ``device`` None means the card (raises without CUDA), or the mesh's
+    device; a ``mesh`` with a process group makes the engine data parallel
+    (``cardiax_torch.parallel``)."""
     name = trainer_config.get("scheme", "LMA")
     if name not in _SCHEME_REGISTRY:
         raise KeyError(f"Unknown training scheme {name!r}; "
                        f"known: {sorted(_SCHEME_REGISTRY)}")
     full = full_config if full_config is not None else {}
     scheme = _SCHEME_REGISTRY[name](trainer_config, full)
-    return TrainerEngine(scheme, trainer_config, full, device=device)
+    return TrainerEngine(scheme, trainer_config, full, device=device,
+                         mesh=mesh)
 
 
 __all__ = ["build_trainer", "TrainerEngine", "Scheme"]

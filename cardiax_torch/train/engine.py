@@ -27,6 +27,28 @@ epoch's early-stop update (``saving.save_checkpoint``, ``io.checkpoints``),
 resumes from the latest one exactly (``training.resume``), and draws the
 periodic figure of the first val batch (``others.wandb_visualize_interval``,
 ``Scheme.visualize``).
+
+With a ``mesh`` (``cardiax_torch.parallel``: one process a card, joined by
+``torch.distributed``) the engine is data parallel with JAX's semantics:
+``training.batch_size`` is the global batch, each rank takes its rows of
+it, the parameters are replicated (rank 0's, broadcast at set-up), and
+every loss value, gradient and prediction is the one-device run's:
+
+* every loss term is a count-normalised sum (``LossCalculator.counts``),
+  so rank r scales its term by n_r / N, n_r the count of the term's mask on
+  the rank and N one all-reduced sum of them; a sum of the ranks' scaled
+  values is the global value (``max_abs_displacement`` takes the max);
+* the gradients are all-reduced (a sum) between ``backward`` and the
+  optimizers' step, one flat buffer a model (``_reduce_gradients``), so
+  the step loop and a captured ``StepGraph`` run the same collectives
+  (NCCL's are captured; gloo's cannot be, and a gloo group keeps the step
+  loop);
+* ``test`` gathers the ranks' predictions in rank order, so every rank
+  returns the one-device predictions;
+* rank 0 alone writes files (checkpoints, metrics, figures, the profiler
+  window), then every rank waits at a barrier; every rank reads a
+  checkpoint to resume. JAX writes from every process; two ranks here
+  would race on the checkpoint retention's deletions.
 """
 
 from __future__ import annotations
@@ -50,6 +72,9 @@ from cardiax_torch.io.profiling import STEP_SPAN, print_trace_summary
 from cardiax_torch.losses.calculator import LossCalculator
 from cardiax_torch.losses.metrics import classification_metrics
 from cardiax_torch.models import init_weights
+from cardiax_torch.parallel.mesh import (all_reduce, barrier, gather_rows,
+                                         local_rows, rank_rows, replicate,
+                                         writes_files)
 from cardiax_torch.train.graphs import (EpochRunner, StepGraph, read_values,
                                         stack_values)
 from cardiax_torch.train.optim import (build_optimizer, graph_capturable,
@@ -177,11 +202,25 @@ def _bundles(models: Dict[str, Any]) -> Dict[str, Any]:
 
 class TrainerEngine:
     def __init__(self, scheme: Scheme, trainer_config: Dict[str, Any],
-                 full_config: Dict[str, Any], device=None):
+                 full_config: Dict[str, Any], device=None, mesh=None):
         self.scheme = scheme
         self.trainer_config = trainer_config or {}
         self.full_config = full_config or {}
+        if mesh is not None:
+            if device is None:
+                device = mesh.device
+            elif not _same_device(torch.device(device), mesh.device):
+                raise ValueError(f"device={device!r}: this rank's mesh runs "
+                                 f"on {mesh.device}")
         self.device = resolve_device(device)
+        # data parallel where the mesh has a process group; a mesh of one
+        # process without one is the one-card engine
+        self.mesh = mesh
+        self._dp = mesh is not None and mesh.group is not None
+        # a CUDA graph can hold NCCL's collectives, not gloo's
+        self._capturable_collectives = not self._dp \
+            or mesh.backend == "nccl"
+        self._writes = writes_files(mesh)
         self.loss_calc = LossCalculator(self.full_config.get("losses", {}))
         self.metric_prefix = self.trainer_config.get("metric_prefix", "")
         self.modules: Dict[str, torch.nn.Module] = {}
@@ -239,26 +278,49 @@ class TrainerEngine:
             if conf is not None:
                 self.optimizers[name] = build_optimizer(
                     module.parameters(), conf, steps_per_epoch)
+        if self._dp:
+            # every rank drew the same weights from the seed; rank 0's make
+            # sure of it
+            replicate([m.state_dict() for m in self.modules.values()]
+                      + [opt.state for opt, _ in self.optimizers.values()],
+                      self.mesh)
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The numeric fields of a batch (numpy arrays, or tensors of a
-        device-resident loader) as tensors on the engine's device."""
+        device-resident loader) as tensors on the engine's device. Under a
+        mesh a host array is the global batch and this rank takes its rows
+        (``parallel.shard_batch``'s rule); a tensor came from a loader that
+        took them already."""
         out = {}
         for k, v in batch.items():
             if isinstance(v, torch.Tensor):
                 out[k] = v.to(self.device)
             elif isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
-                out[k] = torch.from_numpy(v).to(self.device)
+                out[k] = torch.from_numpy(rank_rows(v, self.mesh)).to(
+                    self.device)
         return out
 
     # ---- steps ------------------------------------------------------------ #
     def _loss(self, arrays: Dict[str, torch.Tensor]):
+        """(total, values, preds) of one batch. Data parallel, ``total``
+        is this rank's share of the global loss (its gradient, summed over
+        the ranks, is the global gradient) and ``values`` are global."""
         preds, targets = self.scheme.forward(self.modules, arrays)
-        total, values = self.loss_calc(preds, targets)
+        scale = None
+        if self._dp:
+            n = self.loss_calc.counts(preds, targets, self.device)
+            scale = n / all_reduce(n.clone(), self.mesh).clamp_min(1.0)
+        total, values = self.loss_calc(preds, targets, scale=scale)
+        if self._dp and values:
+            vec = torch.stack([v.detach().float() for v in values.values()])
+            values = dict(zip(values, all_reduce(vec, self.mesh).unbind()))
         if "displacement" in preds:
             # band-saturation guard of the banded warp: max |u_inv|, kept
             # on the device (read with the epoch's other values)
-            values["max_abs_displacement"] = preds["displacement"].abs().max()
+            peak = preds["displacement"].detach().abs().max()
+            values["max_abs_displacement"] = all_reduce(peak, self.mesh,
+                                                        "max") \
+                if self._dp else peak
         return total, values, preds
 
     def backward(self, arrays: Dict[str, torch.Tensor]
@@ -274,12 +336,26 @@ class TrainerEngine:
 
     def _update(self, arrays: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        """Backward and every optimizer's step: the device work of a train
-        step, which a CUDA graph holds (``train.graphs``)."""
+        """Backward, the gradients' all-reduce (data parallel) and every
+        optimizer's step: the device work of a train step, which a CUDA
+        graph holds (``train.graphs``)."""
         values = self.backward(arrays)
+        if self._dp:
+            self._reduce_gradients()
         for opt, _ in self.optimizers.values():
             opt.step()
         return values
+
+    def _reduce_gradients(self) -> None:
+        """Sum each trained model's gradients over the ranks: one flat
+        buffer a model, one all-reduce each."""
+        for name in self.optimizers:
+            grads = [p.grad for p in self.modules[name].parameters()
+                     if p.grad is not None]
+            flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                              self.mesh)
+            for g, r in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(r.view_as(g))
 
     def _schedules_step(self) -> None:
         """Every schedule's step: the next step's learning rates (written
@@ -361,7 +437,8 @@ class TrainerEngine:
         try:
             cached = DeviceBatcher(loader.dataset, loader.batch_size,
                                    shuffle=loader.shuffle, seed=loader.seed,
-                                   device=self.device, epoch=loader._epoch)
+                                   device=self.device, mesh=self.mesh,
+                                   epoch=loader._epoch)
         except (ValueError, RuntimeError) as e:   # ragged items, OOM
             warnings.warn(f"device_data_cache({tag}): falling back to the "
                           f"host Batcher: {e}", RuntimeWarning)
@@ -381,12 +458,7 @@ class TrainerEngine:
         engine's modules live there since construction)."""
         if device is None:
             return
-        want = torch.device(device)
-
-        def index(d):
-            return torch.cuda.current_device() \
-                if d.type == "cuda" and d.index is None else d.index
-        if want.type != self.device.type or index(want) != index(self.device):
+        if not _same_device(torch.device(device), self.device):
             raise ValueError(f"device={device!r}: this engine runs on "
                              f"{self.device}; build it with that device")
 
@@ -462,10 +534,13 @@ class TrainerEngine:
         if val_loader is not None:
             val_loader = self._maybe_device_cache(val_loader, cfg, "val")
         if tracker is None:
+            # rank 0 alone writes the metrics and prints them
             tracker = MetricsTracker(
-                use_wandb=use_wandb, use_tensorboard=use_tensorboard,
-                log_dir=saving.get("saving_dir"),
-                run_name=full.get("info", {}).get("experiment_name", "cardiax"))
+                use_wandb=use_wandb and self._writes,
+                use_tensorboard=use_tensorboard,
+                log_dir=saving.get("saving_dir") if self._writes else None,
+                run_name=full.get("info", {}).get("experiment_name", "cardiax"),
+                quiet=not self._writes)
         self.setup(models, None, len(train_loader), seed=seed)
         self._runners = {}
 
@@ -654,7 +729,8 @@ class TrainerEngine:
                 proc_epoch = epoch
                 step_values: List[Dict[str, torch.Tensor]] = []
                 for batch in self._feed(train_loader):
-                    if profile_dir and global_step == 1 and not profiled:
+                    if profile_dir and global_step == 1 and not profiled \
+                            and self._writes:
                         # the first step (and its set-up) stays out of the
                         # window
                         if step_values:
@@ -754,7 +830,7 @@ class TrainerEngine:
                 t_ckpt = time.perf_counter()
             # after the early-stop update, so the saved counters hold this
             # epoch's decision
-            if ckpt is not None:
+            if ckpt is not None and self._writes:
                 saved = ckpt.save(
                     proc_epoch, self._snapshot(), self._optimizer_states(),
                     best_params=best_state,
@@ -766,6 +842,8 @@ class TrainerEngine:
                 if saved:
                     best_metrics_path.write_text(
                         json.dumps(best_epoch_metrics))
+            if ckpt is not None:
+                barrier(self.mesh)
             if ht is not None:
                 ht["ckpt"] = time.perf_counter() - t_ckpt
                 # `total` spans dispatch to processed; under pipelining
@@ -805,16 +883,21 @@ class TrainerEngine:
         The same batches either way."""
         if self.device.type == "cuda" \
                 and not getattr(loader, "device_resident", False):
-            return PrefetchBatcher(loader, self.device)
+            return PrefetchBatcher(loader, self.device, mesh=self.mesh)
         return loader
 
     def _uncapturable(self) -> Optional[str]:
         """Why the train step cannot be a CUDA graph on this engine's
         device (an optimizer that reads its learning rate from the host:
-        SGD), or None. Decided before anything is captured; the CPU runs
-        the fused path eagerly and needs nothing."""
+        SGD; collectives that are not NCCL's), or None. Decided before
+        anything is captured; the CPU runs the fused path eagerly and needs
+        nothing."""
         if self.device.type != "cuda":
             return None
+        if not self._capturable_collectives:
+            return (f"the process group's backend is "
+                    f"{self.mesh.backend}, whose collectives cannot be "
+                    f"captured in a CUDA graph (only NCCL's can)")
         bad = sorted(name for name, (opt, _) in self.optimizers.items()
                      if not graph_capturable(opt))
         if bad:
@@ -855,7 +938,9 @@ class TrainerEngine:
         ``saving_dir/figures/epoch_{epoch:04d}.png``, with ``params`` (a
         ``_snapshot``) loaded for it where given. A figure must never stop
         training, nor fail silently: the first failure warns, later ones are
-        suppressed (as in JAX)."""
+        suppressed (as in JAX). Data parallel, every rank runs the eval
+        step (it holds collectives) and rank 0, which holds the first
+        sample, draws."""
         current = None
         try:
             if params is not None:
@@ -863,6 +948,8 @@ class TrainerEngine:
                 self._load_params(params)
             vb = next(iter(val_loader))
             _, vpred = self.eval_step(self.to_device(vb))
+            if not self._writes:
+                return
             vpred_np = {k: v.float().cpu().numpy() for k, v in vpred.items()}
             vb_np = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                          else v) for k, v in vb.items()}
@@ -904,8 +991,11 @@ class TrainerEngine:
         unused there too.
 
         The eval step is a CUDA graph on the card (``train.graphs``: the
-        first batch warms it up, the second captures it), with the batch
-        copied into its static inputs. Under ``training.eval_pipeline``
+        first batch warms it up, the second captures it; eager where the
+        collectives are gloo's), with the batch copied into its static
+        inputs. Data parallel, each rank evaluates its rows of every batch
+        and the predictions are gathered in rank order, so every rank
+        returns the one-device predictions. Under ``training.eval_pipeline``
         (default true) batch k+1's step is enqueued before batch k's
         predictions are read: the same steps on the same inputs, so the
         predictions are those of the unpipelined loop bit for bit. The loss
@@ -920,7 +1010,11 @@ class TrainerEngine:
         preds: List[Dict[str, Any]] = []
         step_values: List[Dict[str, torch.Tensor]] = []
         static: Dict[str, torch.Tensor] = {}
-        graph = StepGraph(lambda: self.eval_step(static), self.device)
+        # each rank evaluated its rows, or (a batch that does not divide
+        # the mesh) the whole batch, as every rank did
+        sharded = self._dp and local_rows(batch_size, self.mesh) is not None
+        graph = StepGraph(lambda: self.eval_step(static), self.device,
+                          capture=self._capturable_collectives)
 
         def run(arrays):
             if not static:
@@ -930,8 +1024,11 @@ class TrainerEngine:
                     static[k].copy_(v)
             values, pred = graph()
             # the graph's next replay overwrites its outputs
-            return ({k: v.clone() for k, v in values.items()},
-                    {k: v.clone() for k, v in pred.items()})
+            values = {k: v.clone() for k, v in values.items()}
+            if sharded:
+                return values, {k: gather_rows(v, self.mesh)
+                                for k, v in pred.items()}
+            return values, {k: v.clone() for k, v in pred.items()}
 
         def consume(batch, pred):
             pred_np = {k: v.float().cpu().numpy() for k, v in pred.items()}
@@ -965,6 +1062,14 @@ class TrainerEngine:
         if tracker is not None:
             tracker.log(perf)
         return preds, perf, tracker
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    def index(d):
+        return torch.cuda.current_device() \
+            if d.type == "cuda" and d.index is None else d.index
+    return a.type == b.type and index(a) == index(b)
 
 
 def _start_profiler(device: torch.device):

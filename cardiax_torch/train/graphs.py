@@ -12,9 +12,12 @@ dispatch an epoch) and ``_build_epoch_trainval_fn``:
   their state and the kernels' libraries load before anything is captured.
   The second call captures the function into a ``torch.cuda.CUDAGraph``
   (on the same side stream, in a private memory pool) and replays it;
-  every later call replays it. On the CPU there is no graph: every call
-  runs the function eagerly. A capture or replay that fails raises; there
-  is no fallback.
+  every later call replays it. On the CPU, or with ``capture=False`` (a
+  step whose collectives are gloo's), there is no graph: every call runs
+  the function eagerly. A capture or replay that fails raises; there is no
+  fallback. Collectives of an NCCL process group are captured like any
+  other work: the warm-up creates the communicator and runs them once,
+  eagerly, on the stream the capture then uses.
 * ``EpochRunner`` is one loader's fused epoch: the epoch plan (index and
   mask matrices) in static device buffers, a device row counter, and a
   ``StepGraph`` whose body gathers row ``k``'s batch from the resident
@@ -44,21 +47,23 @@ from cardiax_torch.ops import counters
 
 class StepGraph:
     """``fn()`` run eagerly once, then captured and replayed on the card;
-    always eager on the CPU. ``__call__`` returns ``fn``'s outputs (the
-    graph's static outputs once captured: the next call overwrites them)."""
+    always eager on the CPU or without ``capture``. ``__call__`` returns
+    ``fn``'s outputs (the graph's static outputs once captured: the next
+    call overwrites them)."""
 
-    def __init__(self, fn: Callable[[], Any], device: torch.device):
+    def __init__(self, fn: Callable[[], Any], device: torch.device,
+                 capture: bool = True):
         self.fn = fn
-        self.cuda = torch.device(device).type == "cuda"
+        self.captures = torch.device(device).type == "cuda" and capture
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.launches: Dict[str, int] = {}
         self.replays = 0
         self._warm = False
-        self._stream = torch.cuda.Stream(device) if self.cuda else None
+        self._stream = torch.cuda.Stream(device) if self.captures else None
 
     def __call__(self) -> Any:
-        if not self.cuda:
+        if not self.captures:
             return self.fn()
         if self.graph is None:
             if not self._warm:

@@ -74,6 +74,22 @@ prints no result without CUDA. Phases, one line each:
    peak memory of the flagship train step, the flagship eval step and the
    reg train step, with one replayed epoch's counted K1-K4 launches held to the
    kernels in its profiler trace;
+4c. dp: data parallel (``cardiax_torch.parallel``). dp1, inside the
+   deterministic mode: the train phase's ``main.run`` with
+   ``parallel.mesh_shape: "1"`` over a world-1 NCCL process group, the
+   fused epoch captured with the NCCL all-reduces inside: metrics,
+   parameters and optimizer state ``torch.equal`` to the train phase's
+   run without a mesh, exact launches under replay, and the all-reduces
+   each captured step holds. dp2: two gloo ranks on this card (this script
+   started again with hidden ``--dp-*`` arguments, its output captured),
+   the flagship at full width, batch 10 = 5 slices a rank, 3 steps of the
+   step loop, against one process summing the same shards and against one
+   rank on the full batch (``run_dp_ranks``), ``engine.test``'s gathered
+   predictions, exact launches a rank, ``epoch_fuse: true`` raising with
+   gloo's reason; each rank's step host and device time and the gradient
+   all-reduce's time and bytes. dp_cards: where two or more cards are
+   visible, min(4, cards) NCCL ranks, one a card, the step a CUDA graph,
+   with dp2's gates; else it says it was skipped;
 5. train step: kernel path vs plain path on one train step (loss and every
    parameter's gradient), a 10-step overfit of one batch, and the train
    step's time;
@@ -3254,6 +3270,445 @@ def run_export(tmp: Path, card: str):
     return add, child["launches"]["solve"]
 
 
+# ---- dp: data parallel (cardiax_torch.parallel) ------------------------------ #
+
+DP_STEPS = 3            # the flagship's train steps of the dp2/dp_cards ranks
+DP_TIMEOUT_S = 300      # a rank that has not ended by then is killed
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def counted_all_reduce():
+    """Around a run: every ``torch.distributed.all_reduce`` call and its
+    bytes (``calls``, ``bytes``), and on each ``StepGraph`` the calls and
+    bytes its capture holds (``graph.all_reduces``)."""
+    import torch.distributed as dist
+    from cardiax_torch.train.graphs import StepGraph
+    real, capture = dist.all_reduce, StepGraph._capture
+    rec = types.SimpleNamespace(calls=0, bytes=0)
+
+    def counting(t, *args, **kwargs):
+        rec.calls += 1
+        rec.bytes += t.numel() * t.element_size()
+        return real(t, *args, **kwargs)
+
+    def recorded_capture(self):
+        calls, nbytes = rec.calls, rec.bytes
+        capture(self)
+        self.all_reduces = (rec.calls - calls, rec.bytes - nbytes)
+
+    dist.all_reduce, StepGraph._capture = counting, recorded_capture
+    try:
+        yield rec
+    finally:
+        dist.all_reduce, StepGraph._capture = real, capture
+
+
+def run_dp1(tmp: Path, train_cfg, train_res, train_launches):
+    """``main.run`` of the train phase's config with ``parallel.mesh_shape:
+    "1"`` over a world-1 NCCL process group: the fused epoch captured with
+    the NCCL all-reduces inside, ``torch.equal`` (metrics, the epoch-1
+    checkpoint's parameters and optimizer state) to the train phase's run
+    without a mesh (the scale is exactly 1, the all-reduce a copy), with
+    its exact launches under replay. Runs under ``device.deterministic``."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        with counted_all_reduce() as rec:
+            res, watch, secs, launches = dispatch_main_run(
+                train_cfg, "dp1", {"parallel": {"mesh_shape": "1"},
+                                   "saving.saving_dir": str(tmp / "dp1")},
+                train_launches)
+        eng = watch.engines[0][0]
+        require(eng._dp and eng.mesh.backend == "nccl"
+                and eng.mesh.shape == {"data": 1},
+                f"dp1: the engine is not data parallel over NCCL: "
+                f"{eng.mesh}")
+        text = dispatch_text(watch, "dp1", pipelined=False)
+        per_graph = {("eval" if for_eval else "train"): r.graph.all_reduces
+                     for (_, for_eval), r in eng._runners.items()}
+        require(per_graph.get("train", (0, 0))[0] > 0,
+                f"dp1: the captured train step holds no all-reduce: "
+                f"{per_graph}")
+    finally:
+        dist.destroy_process_group()
+
+    def run_of(r, run_dir):
+        params, opt = ckpt_state(run_dir, 1)
+        return r["train_loss_dict"], params, opt
+
+    diff = run_diff(run_of(res, tmp / "dp1"),
+                    run_of(train_res, Path(train_cfg["saving"]["saving_dir"])),
+                    watch.initial[0])
+    gate = gate_runs("dp1 (mesh (1,) over NCCL) vs the train phase's run "
+                     "without a mesh", diff, None)
+    print(f"dp: {gate}; main.run in {secs:.2f} s; {text}; captured "
+          f"all-reduces a step: "
+          + ", ".join(f"{k} {n} ({b} bytes)" for k, (n, b)
+                      in sorted(per_graph.items()))
+          + f"; {rec.calls} all-reduce calls in the run, {rec.bytes} bytes; "
+          f"launches {launches}")
+    return launches
+
+
+def dp_data(cfg):
+    """The dp ranks' data: 3 global batches of 10 from 30 synthetic 128^2
+    slices (T=20), and a 15-slice test set (batches of 10 and 5 + 5
+    padding)."""
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import Batcher
+    from cardiax_torch.data.synthetic import make_dataset
+    ds_cfg = cfg["datasets"]["train"]
+    t_myo = int(ds_cfg["n_myo_frames_to_use_for_regression"])
+    train = JointDataset(make_dataset(n_subjects=10, slices_per_subject=3,
+                                      h=128, w=128, n_frames=t_myo, seed=8),
+                         dataset_config=ds_cfg)
+    test = JointDataset(make_dataset(n_subjects=5, slices_per_subject=3,
+                                     h=128, w=128, n_frames=t_myo, seed=9),
+                        dataset_config=cfg["datasets"]["test"])
+    batches = list(Batcher(train, int(cfg["training"]["batch_size"])))
+    require(len(batches) == DP_STEPS, f"dp: {len(batches)} batches")
+    return batches, test
+
+
+def shard_steps(engine, batches, shards: int):
+    """The ranks' arithmetic in one process, without a collective: each
+    train step runs backward on each of ``shards`` row blocks of the batch
+    apart and sums their values and gradients, each weighted by its share
+    of the batch's real rows (the displacement max: the max), then steps
+    the optimizers. Returns each step's values and the first step's
+    gradients (``grads_of``'s names)."""
+    params = {f"{name}.{k}": p for name, m in engine.modules.items()
+              for k, p in m.named_parameters() if p.requires_grad}
+    values_out, first = [], None
+    for batch in batches:
+        rows, total = len(batch["sample_mask"]), batch["sample_mask"].sum()
+        values, grads = {}, {}
+        for i in range(shards):
+            part = {k: v[i * rows // shards:(i + 1) * rows // shards]
+                    for k, v in batch.items() if isinstance(v, np.ndarray)}
+            w = float(part["sample_mask"].sum() / total)
+            for k, v in engine.backward(engine.to_device(part)).items():
+                values[k] = max(values.get(k, 0.0), float(v)) \
+                    if k == "max_abs_displacement" \
+                    else values.get(k, 0.0) + w * float(v)
+            for k, p in params.items():
+                grads[k] = grads.get(k, 0) + w * p.grad
+        for k, p in params.items():
+            p.grad = grads[k]
+        for opt, _ in engine.optimizers.values():
+            opt.step()
+        engine._schedules_step()
+        values_out.append(values)
+        first = first or {k: g.cpu() for k, g in grads.items()}
+    return values_out, first
+
+
+def dp_engine(mesh, dev):
+    """The flagship at full width, seeded random weights, on ``mesh``."""
+    from cardiax_torch.train import build_trainer
+    cfg = json.loads((ROOT / "configs" / "joint.json").read_text())
+    n_pairs = int(cfg["datasets"]["train"]
+                  ["n_myo_frames_to_use_for_regression"]) - 1
+    engine = build_trainer(cfg["training"], dev, cfg, mesh=mesh)
+    engine.setup(random_nets(cfg, n_pairs, seed=1), None, DP_STEPS)
+    return engine
+
+
+def dp_work(mesh, dev):
+    """One rank's (or, ``mesh`` None, the one-rank reference's) work: the
+    flagship at full width with seeded random weights, 3 train steps on
+    the global batches (the step loop; a ``StepGraph`` of the step where
+    the collectives are NCCL's), ``engine.test`` on the test set, and on a
+    gloo mesh ``epoch_fuse: true``, which must raise."""
+    from cardiax_torch.train import build_trainer
+    from cardiax_torch.train.graphs import StepGraph
+    engine = dp_engine(mesh, dev)
+    cfg = engine.full_config
+    batches, test = dp_data(cfg)
+    static: dict = {}
+    graph = StepGraph(lambda: engine._update(static), engine.device) \
+        if mesh is not None and mesh.backend == "nccl" else None
+
+    def step(arrays):
+        if graph is None:
+            return engine.train_step(arrays)
+        if not static:
+            static.update({k: v.clone() for k, v in arrays.items()})
+        for k, v in arrays.items():
+            static[k].copy_(v)
+        values = graph()
+        engine._schedules_step()
+        return values
+
+    out = {"values": [], "host_ms": [], "device_ms": [],
+           "graph": graph is not None}
+    zero_counts()
+    for i, batch in enumerate(batches):
+        arrays = engine.to_device(batch)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        values = step(arrays)
+        end.record()
+        torch.cuda.synchronize()
+        out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["device_ms"].append(start.elapsed_time(end))
+        out["values"].append({k: float(v) for k, v in values.items()})
+        if i == 0:
+            out["grads"] = {k: g.cpu() for k, g in grads_of(engine).items()}
+    out["step_launches"] = named_counts()
+    out["params"] = {n: {k: v.detach().cpu().clone()
+                         for k, v in m.state_dict().items()}
+                     for n, m in engine.modules.items()}
+    if mesh is not None:
+        # the gradient all-reduce alone (it sums the held gradients again:
+        # they are not read after this)
+        out["all_reduce_bytes"] = sum(
+            p.grad.numel() * p.grad.element_size()
+            for m in engine.modules.values() for p in m.parameters()
+            if p.grad is not None)
+        ms = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            engine._reduce_gradients()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(((time.perf_counter() - t0) * 1e3,
+                       start.elapsed_time(end)))
+        out["all_reduce_ms"] = ms
+    zero_counts()
+    preds, _, _ = engine.test({}, {"test": test})
+    torch.cuda.synchronize()
+    out["test_launches"] = named_counts()
+    out["test_tos"] = np.stack([p["TOS_pred"] for p in preds])
+    if mesh is not None and mesh.backend != "nccl":
+        fuse_cfg = copy.deepcopy(cfg)
+        fuse_cfg["training"].update(epoch_fuse=True, epochs=1)
+        fuse_cfg["saving"] = {}
+        fused = build_trainer(fuse_cfg["training"], dev, fuse_cfg, mesh=mesh)
+        try:
+            n_pairs = int(cfg["datasets"]["train"]
+                          ["n_myo_frames_to_use_for_regression"]) - 1
+            fused.train(random_nets(cfg, n_pairs, seed=1), {"train": test})
+            out["fuse_error"] = None
+        except NotImplementedError as e:
+            out["fuse_error"] = str(e)
+    return out
+
+
+def dp_rank_main(args) -> int:
+    """A rank of the dp2/dp_cards phases (``chip_smoke.py`` started again
+    with the hidden ``--dp-*`` arguments): joins the process group, runs
+    ``dp_work`` and saves what it saw for the parent."""
+    import torch.distributed as dist
+    from cardiax_torch.device import set_numerics
+    from cardiax_torch.parallel import get_mesh
+    set_numerics()
+    devs = [torch.device("cuda", 0 if args.dp_one_card else r)
+            for r in range(args.dp_world)]
+    torch.cuda.set_device(devs[args.dp_rank])
+    dist.init_process_group(args.dp_backend,
+                            init_method=f"tcp://127.0.0.1:{args.dp_port}",
+                            world_size=args.dp_world, rank=args.dp_rank)
+    try:
+        mesh = get_mesh(devices=devs)
+        out = dp_work(mesh, devs[args.dp_rank])
+        out["backend"], out["device"] = mesh.backend, str(mesh.device)
+        torch.save(out, Path(args.dp_out) / f"rank{args.dp_rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_dp_ranks(tmp: Path, card: str, label: str, world: int,
+                 backend: str, one_card: bool):
+    """``world`` ranks of ``dp_work`` (rank processes, their output in
+    ``tmp``) against two references here. One process summing the same
+    shards (``shard_steps``: the ranks' arithmetic without a collective):
+    the first step's values and all-reduced gradients within 1e-5
+    relative, the later steps' values within 1e-4 (Adam carries the first
+    step's rounding into the weights). One rank on the full batch (``dp_work`` without a
+    mesh): the loss values within 1e-3 relative step by step
+    (``max_abs_displacement`` at the first step only: a max, not a loss),
+    the gradients within 5e-2 relative L2 a tensor (the kernel-vs-plain
+    step gate), or, where one process summing the shards departs from the
+    full batch as far (bf16 trunks at batch 5 round otherwise than at 10),
+    within that departure plus the shard tolerance. Also: the ranks' parameters
+    ``torch.equal`` after the steps, each rank's exact launches,
+    ``engine.test``'s gathered predictions within 1.9e-2 of their range of
+    the reference's (the eval gate), equal on every rank, and on gloo
+    ``epoch_fuse: true`` raising with the backend's reason. Returns rank
+    0's launches."""
+    out_dir = tmp / label
+    out_dir.mkdir()
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        log = open(out_dir / f"rank{rank}.log", "w")
+        cmd = [sys.executable, str(Path(__file__).resolve()),
+               "--dp-rank", str(rank), "--dp-world", str(world),
+               "--dp-port", str(port), "--dp-backend", backend,
+               "--dp-out", str(out_dir)] + (["--dp-one-card"]
+                                            if one_card else [])
+        procs.append((subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    t0 = time.perf_counter()
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, DP_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    for rank, (proc, _) in enumerate(procs):
+        tail = (out_dir / f"rank{rank}.log").read_text()[-3000:]
+        require(proc.returncode == 0,
+                f"{label}: rank {rank} exited {proc.returncode}:\n{tail}")
+    outs = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    ref = dp_work(None, torch.device("cuda"))
+    ctrl = dp_engine(None, torch.device("cuda"))
+    ctrl_values, ctrl_grads = shard_steps(ctrl, dp_data(ctrl.full_config)[0],
+                                          world)
+    del ctrl
+    n_steps = n_euler_steps(json.loads((ROOT / "configs" / "joint.json")
+                                       .read_text()))
+    expect_step = {"epdiff_step_fwd": n_steps * DP_STEPS,
+                   "epdiff_step_bwd": n_steps * DP_STEPS,
+                   "mc_warp_fwd": DP_STEPS, "mc_warp_disp_bwd": DP_STEPS}
+    expect_test = {"epdiff_step_fwd": n_steps * 2, "mc_warp_fwd": 2}
+    losses = ("registration_reconstruction", "registration_supervision",
+              "TOS_regression", "total_loss")
+
+    def rel(a, b):
+        if isinstance(a, torch.Tensor):
+            return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        return abs(a - b) / abs(b)
+
+    worst = dict.fromkeys(("shard values", "shard grads", "full values",
+                           "full grads"), (0.0, ""))
+    worst_tos = 0.0
+    beyond = set()
+    for rank, out in enumerate(outs):
+        require(out["backend"] == backend,
+                f"{label}: rank {rank} backend {out['backend']}")
+        for name, want in (("step_launches", expect_step),
+                           ("test_launches", expect_test)):
+            got = {k: v for k, v in out[name].items() if v}
+            require(got == want, f"{label}: rank {rank} {name} {got} != "
+                                 f"{want}")
+        # (what, rank's, full batch's, shards', full tol, shard tol)
+        cases = [(f"step {i} {k}", a[k], b[k], c[k], 1e-3,
+                  1e-5 if i == 0 else 1e-4)
+                 for i, (a, b, c) in enumerate(zip(
+                     out["values"], ref["values"], ctrl_values))
+                 for k in losses + (("max_abs_displacement",)
+                                    if i == 0 else ())]
+        cases += [(k, out["grads"][k], g, ctrl_grads[k], 5e-2, 1e-5)
+                  for k, g in ref["grads"].items()]
+        failed = []
+        for what, got, full, shard, tol, shard_tol in cases:
+            kind = "values" if what.startswith("step ") else "grads"
+            e_shard, e_full, e_ctrl = (rel(got, shard), rel(got, full),
+                                       rel(shard, full))
+            worst[f"shard {kind}"] = max(worst[f"shard {kind}"],
+                                         (e_shard, what))
+            worst[f"full {kind}"] = max(worst[f"full {kind}"], (e_full, what))
+            if e_shard > shard_tol:
+                failed.append(f"{what}: {e_shard:.3e} from one process "
+                              f"summing the same shards (tol {shard_tol})")
+            if e_full > tol:
+                beyond.add(f"{what} {e_full:.3e} (shards summed in one "
+                           f"process: {e_ctrl:.3e})")
+                if e_full > e_ctrl + shard_tol:
+                    failed.append(f"{what}: {e_full:.3e} from one rank on "
+                                  f"the full batch (tol {tol}; one process "
+                                  f"summing the shards: {e_ctrl:.3e})")
+        require(not failed, f"{label}: rank {rank}: " + "; ".join(failed))
+        span = float(np.ptp(ref["test_tos"])) or 1.0
+        err = float(np.abs(out["test_tos"] - ref["test_tos"]).max()) / span
+        worst_tos = max(worst_tos, err)
+        require(out["test_tos"].shape == ref["test_tos"].shape
+                and err <= 1.9e-2,
+                f"{label}: rank {rank} test predictions {err} of the range")
+        require(state_equal(out["params"], outs[0]["params"]),
+                f"{label}: rank {rank}'s parameters differ from rank 0's")
+        require(np.array_equal(out["test_tos"], outs[0]["test_tos"]),
+                f"{label}: rank {rank}'s gathered predictions differ")
+        if backend != "nccl":
+            require(out["fuse_error"] is not None
+                    and backend in out["fuse_error"],
+                    f"{label}: epoch_fuse true on {backend}: "
+                    f"{out['fuse_error']}")
+    print(f"dp: {label}: {world} ranks ({backend}, "
+          f"{'one card' if one_card else 'one card a rank'}; "
+          f"{'step graph' if outs[0]['graph'] else 'step loop'}) of the "
+          f"flagship at full width, batch 10 = {10 // world} slices x 19 "
+          f"pairs a rank, {DP_STEPS} steps, in {ranks_s:.2f} s. Against "
+          f"one process summing the same shards: values within "
+          f"{worst['shard values'][0]:.3e} relative "
+          f"({worst['shard values'][1]}; tol 1e-5 at step 0, 1e-4 after), "
+          f"gradients within {worst['shard grads'][0]:.3e} relative L2 "
+          f"({worst['shard grads'][1]}; tol 1e-5). Against one rank on the "
+          f"full batch: values within {worst['full values'][0]:.3e} "
+          f"relative ({worst['full values'][1]}; tol 1e-3), gradients "
+          f"within {worst['full grads'][0]:.3e} relative L2 "
+          f"({worst['full grads'][1]}; tol 5e-2)"
+          + (f"; beyond the tolerance only where one process departs as "
+             f"far (batch 5 against 10 on one card): {sorted(beyond)}"
+             if beyond else "")
+          + f"; ranks' parameters torch.equal; gathered test predictions "
+          f"within {worst_tos:.3e} of the range (tol 1.9e-2); launches "
+          f"a rank: steps {expect_step}, test {expect_test}"
+          + (f"; epoch_fuse true raises: {outs[0]['fuse_error']}"
+             if backend != "nccl" else ""))
+    for rank, out in enumerate(outs):
+        ar = out["all_reduce_ms"]
+        print(f"dp: {label} rank {rank} ({card}): step host ms "
+              f"{[round(x, 3) for x in out['host_ms']]}, device ms (CUDA "
+              f"events) {[round(x, 3) for x in out['device_ms']]}; the "
+              f"gradient all-reduce alone ({out['all_reduce_bytes']} bytes, "
+              f"5 calls) host ms {[round(h, 3) for h, _ in ar]}, device ms "
+              f"{[round(d, 3) for _, d in ar]}")
+    print(f"dp: {label} one rank (reference, {card}): step host ms "
+          f"{[round(x, 3) for x in ref['host_ms']]}, device ms "
+          f"{[round(x, 3) for x in ref['device_ms']]}")
+    return {k: outs[0]["step_launches"].get(k, 0)
+            + outs[0]["test_launches"].get(k, 0)
+            for k in outs[0]["step_launches"]}
+
+
+def run_dp(tmp: Path, card: str):
+    """dp2: two gloo ranks on this card; dp_cards: one NCCL rank a card on
+    the graph path where two or more cards are visible."""
+    paths = {"dp2": run_dp_ranks(tmp, card, "dp2", 2, "gloo", True)}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        paths["dp_cards"] = run_dp_ranks(tmp, card, "dp_cards", min(4, n),
+                                         "nccl", False)
+    else:
+        print(f"dp_cards: skipped ({n} card visible)")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -3266,11 +3721,20 @@ def main(argv=None) -> int:
                          "take the same C arguments: each kernel alone is "
                          "also timed from its sources, in turns with this "
                          "tree's, and compared with it bit for bit")
+    # a rank of the dp2/dp_cards phases: this script started again
+    for flag, kind in (("--dp-rank", int), ("--dp-world", int),
+                       ("--dp-port", int), ("--dp-backend", str),
+                       ("--dp-out", str)):
+        ap.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-one-card", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_rank_main(args)
     from cardiax_torch.device import deterministic, set_numerics
     set_numerics()
     dev = torch.device("cuda")
@@ -3295,8 +3759,16 @@ def main(argv=None) -> int:
             paths["dispatch"] = run_dispatch(
                 Path(tmp), card, cfg_train, res_train, res_resumed,
                 paths["train"])
+            t_dp = time.perf_counter()
+            paths["dp1"] = run_dp1(Path(tmp), cfg_train, res_train,
+                                   paths["train"])
+            dp_s = time.perf_counter() - t_dp
             del res_train, res_resumed
         dispatch_walls(Path(tmp), card, cfg_train, paths["train"])
+        t_dp = time.perf_counter()
+        paths.update(run_dp(Path(tmp), card))
+        print(f"dp: phase (dp1, dp2, dp_cards) in "
+              f"{dp_s + time.perf_counter() - t_dp:.2f} s")
     run_dispatch_times(card, args.profile)
     run_train_step(args.profile)
     paths["ops"] = run_ops()

@@ -41,6 +41,8 @@ import cardiax.io.profiling as jprofiling
 import cardiax.losses.calculator as jcalc
 import cardiax.losses.metrics as jmetrics
 import cardiax.losses.registration as jreg_losses
+import cardiax.parallel.distributed as jdistributed
+import cardiax.parallel.mesh as jmesh
 import cardiax.train as jtrain
 import cardiax_torch.data.loader as tloader
 import cardiax_torch.data.prefetch as tprefetch
@@ -48,6 +50,8 @@ import cardiax_torch.io.profiling as tprofiling
 import cardiax_torch.losses.calculator as tcalc
 import cardiax_torch.losses.metrics as tmetrics
 import cardiax_torch.losses.registration as treg_losses
+import cardiax_torch.parallel.distributed as tdistributed
+import cardiax_torch.parallel.mesh as tmesh
 import cardiax_torch.train as ttrain
 from cardiax.models.lma_net import NetDisplacement2LMA as JaxNetDisplacement2LMA
 from cardiax.models.lma_net import NetStrainMat2LMA as JaxNetStrainMat2LMA
@@ -274,6 +278,14 @@ PAIRS = {
        for fn in ("expand_grid", "run_sweep", "main")},
     **{f"kfold.{fn}": (getattr(tkfold, fn), getattr(jkfold, fn))
        for fn in ("run_kfold", "main")},
+    "build_trainer": (ttrain.build_trainer, jtrain.build_trainer),
+    **{f"parallel.mesh.{fn}": (getattr(tmesh, fn), getattr(jmesh, fn))
+       for fn in ("local_device_count", "get_mesh", "batch_sharding",
+                  "replicate_sharding", "shard_batch", "replicate")},
+    **{f"parallel.distributed.{fn}": (getattr(tdistributed, fn),
+                                      getattr(jdistributed, fn))
+       for fn in ("initialize_distributed", "host_shard_bounds",
+                  "shard_global_batch")},
     **{f"SplitManager.{m}": (getattr(tsplit.SplitManager, m),
                              getattr(jsplit.SplitManager, m))
        for m in ("__init__", "__len__", "__getitem__", "__iter__")},
@@ -315,9 +327,10 @@ _FLAX = {"parent", "name"}
 # name -> (JAX parameters the port drops, port parameters JAX lacks, reason)
 BY_DESIGN = {
     "TrainerEngine.__init__": (
-        {"mesh"}, {"device"},
-        "one card, no mesh (data parallel is ROADMAP A11); the engine's "
-        "device is given at construction, None meaning the card"),
+        set(), {"device"},
+        "the port takes mesh and keeps device: this rank's device is given "
+        "at construction, None meaning the mesh's device or the card; "
+        "mesh None is the one-card engine (JAX's None is every device)"),
     "TrainerEngine.setup": (
         set(), {"state_dicts"},
         "keyword-only: weights to load instead of drawing them (JAX's "
@@ -352,20 +365,33 @@ BY_DESIGN = {
         set(), {"device"},
         "the port's entry points take the device; None means the card"),
     "kfold.run_kfold": (
-        {"mesh"}, {"device"},
-        "one card, no mesh (data parallel is ROADMAP A11); None means the "
-        "card"),
+        set(), {"device"},
+        "the port takes mesh and keeps device: the entry points take the "
+        "device, None meaning the card; mesh None builds the config's "
+        "mesh over this run's ranks"),
     **{f"{cls}.forward": (
         {"params", "train"}, set(),
         "torch modules hold their parameters and their train/eval mode")
        for cls in ("LMAScheme", "StrainMatPredScheme", "StrainMatLMAScheme",
                    "JointRegistrationRegressionScheme")},
     "DeviceBatcher.__init__": (
-        {"mesh"}, {"device"},
-        "one card, no mesh: the stacked dataset goes to the given device"),
+        set(), {"device"},
+        "the port takes mesh and keeps device: the stacked dataset goes to "
+        "the given device (default the mesh's), each rank gathers its rows"),
     "PrefetchBatcher.__init__": (
-        {"mesh"}, {"device"},
-        "one card, no mesh: batches are copied to the given device"),
+        {"mesh"}, {"device", "mesh"},
+        "the port takes mesh, keyword-only, and keeps device in its place: "
+        "a batch is copied to the given device, under a mesh only this "
+        "rank's rows"),
+    "build_trainer": (
+        set(), set(),
+        "the port takes mesh and keeps device: JAX ignores device, the "
+        "port places the engine there (None: the mesh's device or the "
+        "card)"),
+    "parallel.mesh.get_mesh": (
+        set(), set(),
+        "devices holds one device a rank, in rank order (JAX's is a list "
+        "of one process's devices)"),
     **{f"TrainerEngine.{m}": (
         {"unroll_cap"}, set(),
         "training.epoch_fuse_max_steps caps how far JAX unrolls its scan "
@@ -420,12 +446,13 @@ def test_port_takes_the_jax_parameters(name):
             want[i] = (pname, ours)
     assert got == want
     names = [p[0] for p in _params(port)]
-    assert added <= set(names) and not dropped & set(names)
+    # a name both dropped and added is one the port moves
+    assert added <= set(names) and not (dropped - added) & set(names)
 
 
 # JAX modules with an ``__all__`` -> the ROADMAP item that ports their names,
-# for those the port does not export yet
-EXPORTS_NOT_PORTED = {"parallel": "ROADMAP A11 (data parallel, queue item 6)"}
+# for those the port does not export yet (none: ``parallel`` came last)
+EXPORTS_NOT_PORTED: dict = {}
 
 
 @pytest.mark.parametrize("module", ["config", "data", "io", "losses",
@@ -442,6 +469,12 @@ def test_port_exports_the_jax_names(module):
     missing = [n for n in ref.__all__ if not hasattr(port, n)]
     assert not missing
     assert set(ref.__all__) <= set(getattr(port, "__all__", ()))
+
+
+def test_prefetch_mesh_is_keyword_only():
+    param = inspect.signature(tprefetch.PrefetchBatcher.__init__).parameters[
+        "mesh"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
 
 
 def test_setup_state_dicts_is_keyword_only():
