@@ -138,9 +138,81 @@ mc_warp_fwd_kernel(const float* __restrict__ img,
 // sweep's order: column x0 over channels, then column x1 over channels.
 //
 // Bound on the H100: bytes. Reads disp (2 planes), the field and g (C planes
-// each), writes 2 planes; about 20 flops per channel. Same design as the
-// forward: one thread per pixel, coalesced plane reads and writes, the four
-// gathered taps of neighbouring threads served by L1/L2.
+// each), writes 2 planes: 74.7 MB at (190, 1, 128, 128), 0.0223 ms at 3.35
+// TB/s; about 20 flops a channel.
+//
+// Design: the forward's layout. A thread owns 4 consecutive pixels of a row
+// (block 32 x 8), the row and the item in the grid's y and z, so no thread
+// divides to find its pixel. It loads dy, dx and, at C = 1, g as float4
+// where W % 4 == 0 and disp, g and gdisp are 16-byte aligned (scalar loads,
+// tail-masked, otherwise), all three before any arithmetic; computes its 4
+// coordinates; starts all 16 tap loads before the terms; and stores gdy and
+// gdx as float4. The earlier design, one pixel a thread, found its pixel by
+// two 64-bit divisions, loaded the displacement, then the taps, and read g
+// once a column: two dependent round trips with 8 bytes in flight a thread,
+// 1.67 TB/s at (190, 1, 128, 128). At C > 1 the sum order (every
+// channel's column-x0 term before the first column-x1 term) takes two
+// passes over the channels, each loading g and its column's 8 taps before
+// the terms: g is read twice there (no caller of the port passes C > 1).
+// Registers (ptxas): left to itself the C = 1 path takes 93 (2 blocks an
+// SM) and ran within 7% of the one-pixel kernel on an H100; capped at 64 (4
+// blocks, no spill) it ran 23-30% faster at B4's, B6's and B9's shapes. At
+// 80 (3 blocks) and 48 (5) it was slower than at 64 at all three shapes; at
+// 40 (6) within 2% at B4 and B9 and 4% slower at B6. The C > 1 path fits 80
+// registers (3 blocks) and spills at 64. f32 arithmetic and accumulation;
+// the clamp, the clip, the masks, the sum order and the fused multiply-adds
+// of the one-pixel kernel, term for term, so its output keeps that
+// kernel's bits.
+
+constexpr int kBwdQuads = 32;      // threads a block along a row
+constexpr int kBwdRows = 8;        // rows a block
+constexpr int kBwdMinBlocks = 4;   // blocks an SM at C = 1: 64 registers
+constexpr int kBwdMinBlocksMulti = 3;  // at C > 1: 80 registers
+
+// v[k] = p[k] for k < 4: one float4 where vec, else scalar loads of the nj
+// pixels left in the row (0 beyond). K1 keeps its own inline loads and
+// stores: through these two it compiled to code that ran 10% slower at
+// B6's shape on an H100.
+__device__ __forceinline__ void load_quad(const float* __restrict__ p,
+                                          bool vec, int nj, float v[4]) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = k < nj ? __ldg(p + k) : 0.0f;
+  }
+}
+
+// p[k] = v[k] for the nj pixels left in the row: one float4 where vec
+__device__ __forceinline__ void store_quad(float* __restrict__ p, bool vec,
+                                           int nj, const float v[4]) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < nj) p[k] = v[k];
+  }
+}
+
+// One column's term of one channel: taps a (row y0) and b (row y1), the
+// column's weight wc (1 - fx or fx) and its d hat / d x, sc (-sx or sx).
+//   acc_dy += (wc * gc) * (b - a)
+//   acc_dx += (sc * gc) * (wy0 * a + fy * b)
+// with the fused multiply-adds written out as nvcc formed them for the
+// earlier one-pixel kernel, so that both of K4's paths keep its bits
+// whatever the compiler would contract in their code.
+__device__ __forceinline__ void column_term(float& acc_dy, float& acc_dx,
+                                            float wc, float sc, float gc,
+                                            float a, float b, float wy0,
+                                            float fy) {
+  acc_dy = __fmaf_rn(__fmul_rn(wc, gc), b - a, acc_dy);
+  acc_dx = __fmaf_rn(__fmul_rn(sc, gc), __fmaf_rn(wy0, a, __fmul_rn(fy, b)),
+                     acc_dx);
+}
+
+// K5's d/d disp of one pixel p = (i, j) of item n: the formula above
 __device__ __forceinline__ void disp_grad_at(
     const float* __restrict__ img, const float* __restrict__ disp,
     const float* __restrict__ g, float* __restrict__ gdisp, int64_t n,
@@ -189,20 +261,110 @@ __device__ __forceinline__ void disp_grad_at(
   out[hw + p] = acc_dx * mx;
 }
 
-__global__ void mc_warp_disp_bwd_kernel(const float* __restrict__ img,
-                                        const float* __restrict__ disp,
-                                        const float* __restrict__ g,
-                                        float* __restrict__ gdisp,
-                                        int64_t n_pix, int c, int h, int w,
-                                        float r) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_pix) return;
+// kOneChannel: C == 1, one pass; else two passes over the channels (the
+// sum order). vec: W % 4 == 0 and disp, g, gdisp 16-byte aligned.
+template <bool kOneChannel>
+__global__ void __launch_bounds__(
+    kBwdQuads * kBwdRows, kOneChannel ? kBwdMinBlocks : kBwdMinBlocksMulti)
+mc_warp_disp_bwd_kernel(const float* __restrict__ img,
+                        const float* __restrict__ disp,
+                        const float* __restrict__ g,
+                        float* __restrict__ gdisp, int n_items, int c, int h,
+                        int w, float r, bool vec) {
+  const int j0 = 4 * (blockIdx.x * kBwdQuads + threadIdx.x);
+  const int i = blockIdx.y * kBwdRows + threadIdx.y;
+  if (i >= h || j0 >= w) return;
   const int64_t hw = (int64_t)h * w;
-  const int64_t n = idx / hw;
-  const int64_t p = idx - n * hw;
-  const int i = (int)(p / w);
-  const int j = (int)(p - (int64_t)i * w);
-  disp_grad_at(img, disp, g, gdisp, n, p, i, j, c, h, w, r);
+  const int row = i * w;
+  const int nj = min(4, w - j0);
+  const float fi = (float)i;
+  for (int n = blockIdx.z; n < n_items; n += gridDim.z) {
+    const float* d = disp + (int64_t)n * 2 * hw + row + j0;
+    const float* src = img + (int64_t)n * c * hw;
+    const float* gq = g + (int64_t)n * c * hw + row + j0;
+    float dy[4], dx[4], g0[4];
+    load_quad(d, vec, nj, dy);
+    load_quad(d + hw, vec, nj, dx);
+    if (kOneChannel) load_quad(gq, vec, nj, g0);
+    // tap offsets (y0, x0), (y1, x0), (y0, x1), (y1, x1)
+    int o00[4], o10[4], o01[4], o11[4];
+    float fy[4], fx[4], sx[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float cdy = fminf(fmaxf(dy[k], -r), r);
+      const float cdx = fminf(fmaxf(dx[k], -r), r);
+      const float cy = fminf(fmaxf(fi + cdy, 0.0f), (float)(h - 1));
+      const float cx = fminf(fmaxf((float)(j0 + k) + cdx, 0.0f),
+                             (float)(w - 1));
+      const float y0 = floorf(cy), x0 = floorf(cx);
+      fy[k] = cy - y0;
+      fx[k] = cx - x0;
+      const int iy0 = (int)y0, ix0 = (int)x0;
+      const int ix1 = min(ix0 + 1, w - 1);
+      const int r0 = iy0 * w, r1 = min(iy0 + 1, h - 1) * w;
+      o00[k] = r0 + ix0;
+      o10[k] = r1 + ix0;
+      o01[k] = r0 + ix1;
+      o11[k] = r1 + ix1;
+      // d hat / d x on the two columns: -1, +1, or 0 for both when x1 == x0
+      sx[k] = ix1 != ix0 ? 1.0f : 0.0f;
+    }
+    float acc_dy[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float acc_dx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (kOneChannel) {
+      float a0[4], b0[4], a1[4], b1[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {          // every tap load first
+        a0[k] = __ldg(src + o00[k]);
+        b0[k] = __ldg(src + o10[k]);
+        a1[k] = __ldg(src + o01[k]);
+        b1[k] = __ldg(src + o11[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float wy0 = 1.0f - fy[k];
+        column_term(acc_dy[k], acc_dx[k], 1.0f - fx[k], -sx[k], g0[k], a0[k],
+                    b0[k], wy0, fy[k]);
+        column_term(acc_dy[k], acc_dx[k], fx[k], sx[k], g0[k], a1[k], b1[k],
+                    wy0, fy[k]);
+      }
+    } else {
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {    // column x0, then column x1
+        const int* top = col == 0 ? o00 : o01;
+        const int* bot = col == 0 ? o10 : o11;
+        for (int ch = 0; ch < c; ++ch) {
+          const float* s = src + ch * hw;
+          float gc[4], a[4], b[4];
+          load_quad(gq + ch * hw, vec, nj, gc);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            a[k] = __ldg(s + top[k]);
+            b[k] = __ldg(s + bot[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            column_term(acc_dy[k], acc_dx[k], col == 0 ? 1.0f - fx[k] : fx[k],
+                        col == 0 ? -sx[k] : sx[k], gc[k], a[k], b[k],
+                        1.0f - fy[k], fy[k]);
+        }
+      }
+    }
+    float gdy[4], gdx[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float fj = (float)(j0 + k);
+      const float my = (fabsf(dy[k]) <= r && fi + dy[k] >= 0.0f
+                        && fi + dy[k] <= (float)(h - 1)) ? 1.0f : 0.0f;
+      const float mx = (fabsf(dx[k]) <= r && fj + dx[k] >= 0.0f
+                        && fj + dx[k] <= (float)(w - 1)) ? 1.0f : 0.0f;
+      gdy[k] = acc_dy[k] * my;
+      gdx[k] = acc_dx[k] * mx;
+    }
+    float* out = gdisp + (int64_t)n * 2 * hw + row + j0;
+    store_quad(out, vec, nj, gdy);
+    store_quad(out + hw, vec, nj, gdx);
+  }
 }
 
 // K5: the warp's full backward, per-channel d/d field plus (optionally) K4's
@@ -426,12 +588,22 @@ extern "C" int mc_warp_fwd(const float* img, const float* disp, float* out,
 extern "C" int mc_warp_disp_bwd(const float* img, const float* disp,
                                 const float* g, float* gdisp, int n, int c,
                                 int h, int w, int radius, cudaStream_t stream) {
-  const int64_t n_pix = (int64_t)n * h * w;
-  if (n_pix == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n_pix + threads - 1) / threads;
-  mc_warp_disp_bwd_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      img, disp, g, gdisp, n_pix, c, h, w, (float)(radius - 1));
+  if ((int64_t)n * h * w == 0) return (int)cudaSuccess;
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(disp) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(g) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(gdisp) % 16 == 0;
+  const int quads = (w + 3) / 4;
+  const dim3 grid((unsigned)((quads + kBwdQuads - 1) / kBwdQuads),
+                  (unsigned)((h + kBwdRows - 1) / kBwdRows),
+                  (unsigned)std::min(n, 65535));
+  const dim3 block(kBwdQuads, kBwdRows);
+  const float r = (float)(radius - 1);
+  if (c == 1)
+    mc_warp_disp_bwd_kernel<true><<<grid, block, 0, stream>>>(
+        img, disp, g, gdisp, n, c, h, w, r, vec);
+  else
+    mc_warp_disp_bwd_kernel<false><<<grid, block, 0, stream>>>(
+        img, disp, g, gdisp, n, c, h, w, r, vec);
   return (int)cudaGetLastError();
 }
 

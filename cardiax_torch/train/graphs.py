@@ -37,6 +37,7 @@ step has no counterpart, so the key has no effect here.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -86,8 +87,18 @@ class StepGraph:
     def _capture(self) -> None:
         before = counters.snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
-            self.outputs = self.fn()
+        # Python's cycle collector stays off while the step is captured: a
+        # collection there can destroy an unreachable earlier graph (an
+        # earlier run's engine, such as the last k-fold fold's), a call that
+        # CUDA refuses during a capture and that invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                self.outputs = self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         after = counters.snapshot()
         self.launches = {k: after[k] - before[k] for k in before}
         counters.add(self.launches, -1)    # the capture ran nothing

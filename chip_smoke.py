@@ -13,13 +13,14 @@ prints no result without CUDA. Phases, one line each:
    against its plain PyTorch version, with the displacement clamp and the
    border clip biting, at the flagship shapes and at those of the TPU
    kernels it stands for (K1/K4 at C = 1 at 384x384 and 768x512 frames;
-   K1 also at C = 1, 2, 3 on widths that are no multiple of 4; K3 at R = 1,
-   2 and 3, at the in-scan grid of 768x512 frames, at ragged shapes and at
-   runtime radii of 18-70; K5
+   K1 also at C = 1, 2, 3 on widths that are no multiple of 4; K4 also on
+   such a width, at C = 3, over 65,600 items and with samples held on the
+   last row and column; K3 at R = 1, 2 and 3, at the in-scan grid of
+   768x512 frames, at ragged shapes and at runtime radii of 18-70; K5
    at the in-scan grid of 768x512 frames, the flagship's final warp and
    768x512 frames, and at its hard cases: a convergent field, the clip
    holding whole rows, integer displacements, frames that are no multiple
-   of its tile; K1, K3 and K5 with two launches bit-identical; K6/K7 at
+   of its tile; K1, K3, K4 and K5 with two launches bit-identical; K6/K7 at
    64^2 and 128^2 items, the largest the fused solve takes, at a ragged
    (7, 2, 52, 36), at N = 1, K7 also at R = 1, 3 and the 4x4 minimum, with
    two launches bit-identical); its time (CUDA
@@ -167,8 +168,10 @@ and of the dispatch phase's timed steps, each mode apart, to
 ``DIR/dispatch_<step>_{loop,graph}_profile.txt``.
 ``--baseline DIR`` builds the kernels of DIR (a checkout of an earlier
 commit, ``git archive``) as well, times each kernel alone in turns with
-this tree's (baseline, this, this, baseline) and says whether K1's and
-K3's outputs are bit-identical to the baseline's.
+this tree's (baseline, this, this, baseline), says whether K1's, K3's
+and K4's outputs are bit-identical to the baseline's, and times the
+replayed flagship and reg train steps' device time in the same turns, each
+turn on a graph captured with that tree's kernels.
 """
 
 from __future__ import annotations
@@ -514,34 +517,40 @@ def check_k2(dev, n=190, h=64, w=64):
 
 def check_k4(dev, n=190, c=1, h=128, w=128, r=12, rows="B4"):
     """K4 at the flagship's final warp backward, (190, 1, 128, 128), R=12,
-    by default."""
+    by default; a second launch on the same inputs must give the same
+    bits."""
     from cardiax_torch.ops import warp_kernels as wk
     gen = torch.Generator().manual_seed(4)
     img = smooth(gen, (n, c, h, w), 1.0, dev)
     disp = smooth(gen, (n, 2, h, w), 24.0, dev)
     g = torch.randn((n, c, h, w), generator=gen).to(dev)
     clamped, clipped = clip_shares(disp, r)
-    out = wk._mc_warp_disp_bwd_cuda(img, disp, g, r)
+    launch = lambda: wk._mc_warp_disp_bwd_cuda(img, disp, g, r)  # noqa: E731
+    out = launch()
+    again = launch()
     ref = wk._mc_warp_disp_bwd_plain(img, disp, g, r)
     torch.cuda.synchronize()
+    require(torch.equal(out, again),
+            f"K4 at {(n, c, h, w)}: two launches differ")
     err = (out - ref).abs().max().item()
     tol = 1e-5 * max(1.0, ref.abs().max().item())
     require(err <= tol, f"K4 disagrees with its plain version: {err} > {tol}")
+    versus = same_as_baseline("K4", launch, out)
     # yardstick: the grid gradient of grid_sample on the pre-clamped
     # displacement, image constant
     grid = sample_grid(disp, r).requires_grad_()
     warped = grid_sample(img, grid)
     lib = lambda: torch.autograd.grad(warped, grid, g,  # noqa: E731
                                       retain_graph=True)
-    t = times(lambda: wk._mc_warp_disp_bwd_cuda(img, disp, g, r),
-              ["mc_warp_disp_bwd_kernel"],
+    t = times(launch, ["mc_warp_disp_bwd_kernel"],
               lambda: wk._mc_warp_disp_bwd_plain(img, disp, g, r), lib)
     pix = n * h * w
     bound_ms, bound_by = bound((2 * c + 4) * pix * 4, (20 + 16 * c) * pix)
     print(f"K4 mc_warp_disp_bwd ({n},{c},{h},{w}) R={r} [{rows}]: max|kernel-"
-          f"plain| {err:.3e} (tol {tol:.1e}), clamped {clamped:.3%}, clipped "
-          f"{clipped:.3%}, "
-          f"{time_text(t, bound_ms, bound_by, 'grid_sample grid-grad')}")
+          f"plain| {err:.3e} (tol {tol:.1e}), repeat bit-identical, clamped "
+          f"{clamped:.3%}, clipped {clipped:.3%}, "
+          f"{time_text(t, bound_ms, bound_by, 'grid_sample grid-grad')}"
+          f"{versus}")
     return {"name": "mc_warp_disp_bwd", "route": "cuda",
             "source": "cardiax_torch/csrc/mc_warp.cu",
             "replaces": "cardiax/ops/warp_pallas.py:441",
@@ -572,6 +581,52 @@ def k5_disp(kind, gen, n, h, w, r, scale, dev):
         (h - 1) / 2 + centre[:, 0] - ii, (w - 1) / 2 + centre[:, 1] - jj),
         dim=1)
     return d.contiguous().to(dev)
+
+
+def check_k4_edges(dev):
+    """K4 where its layout could break, R=12, against its plain version with
+    two launches bit-identical: a width that is no multiple of 4 (the scalar
+    path), C = 3 (the channel-sum order's two passes), more than 65,535
+    items (the grid-z stride) and a shift that holds samples on the last row
+    and column (the clip; sx = 0 there)."""
+    from cardiax_torch.ops import warp_kernels as wk
+    r = 12
+    gen = torch.Generator().manual_seed(14)
+    for kind, (n, c, h, w) in (("ragged", (6, 1, 40, 45)),
+                               ("C=3", (4, 3, 33, 46)),
+                               ("C=3 ragged", (2, 3, 30, 37)),
+                               ("grid-z stride", (65600, 1, 8, 12)),
+                               ("clip", (16, 1, 20, 12))):
+        img = smooth(gen, (n, c, h, w), 1.0, dev)
+        disp = k5_disp("clip" if kind == "clip" else "smooth", gen, n, h, w,
+                       r, 15.0, dev)
+        g = torch.randn((n, c, h, w), generator=gen).to(dev)
+        if kind == "clip":      # samples held on the last row and column
+            cy = (torch.arange(h, device=dev).view(1, h, 1)
+                  + disp[:, 0].clamp(-(r - 1), r - 1))
+            cx = (torch.arange(w, device=dev).view(1, 1, w)
+                  + disp[:, 1].clamp(-(r - 1), r - 1))
+            share = ((cy >= h - 1) & (cx >= w - 1)).float().mean().item()
+            require(share > 0, "K4 clip case: no sample on the last row "
+                               "and column")
+            bite = f"last row and column {share:.3%}"
+        else:
+            bite = "clamped {:.3%}, clipped {:.3%}".format(
+                *clip_shares(disp, r))
+
+        def launch(img=img, disp=disp, g=g):
+            return wk._mc_warp_disp_bwd_cuda(img, disp, g, r)
+        out = launch()
+        again = launch()
+        ref = wk._mc_warp_disp_bwd_plain(img, disp, g, r)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again),
+                f"K4 {kind} at {(n, c, h, w)}: two launches differ")
+        err, tol = gate(f"K4 {kind} at {(n, c, h, w)}", (out,), (ref,))
+        versus = same_as_baseline("K4", launch, out)
+        print(f"K4 {kind} ({n},{c},{h},{w}) R={r}: max|kernel-plain| "
+              f"{err:.3e} (tol {tol:.1e}), repeat bit-identical, {bite}"
+              f"{versus}")
 
 
 def check_k5(dev, n, c, h, w, r, scale, rows, kind="smooth"):
@@ -2460,8 +2515,31 @@ def graph_vs_loop_train(label, cfg, dataset, n_pairs, card, what,
             f"{label}: launches counted over one replayed epoch {counted} "
             f"!= the kernels in its trace {seen}")
     print(f"dispatch {label}: one replayed epoch of {n} steps: counted "
-          f"launches {counted} = the kernels in its profiler trace")
+          f"launches {counted} = the kernels in its profiler trace"
+          f"{replay_busy_turns(loader, graph_eng, n)}")
     return out
+
+
+def replay_busy_turns(loader, engine, n: int) -> str:
+    """With ``--baseline``: the device time a replayed step of ``engine``
+    over ``loader`` (``n`` steps an epoch) in turns baseline, this tree,
+    this tree, baseline, each turn on an epoch captured with that tree's
+    kernels (``profile_steps`` of 3 epochs)."""
+    if not BASELINE:
+        return ""
+    from cardiax_torch.train.graphs import EpochRunner
+    turns = []
+    for base in (True, False, False, True):
+        with baseline_kernels(base):
+            runner = EpochRunner(loader, engine._update,
+                                 after_step=engine._schedules_step)
+            runner(*loader.epoch_plan())       # eager, capture, replay
+            busy, _ = profile_steps(lambda: runner(*loader.epoch_plan()))
+        turns.append(None if busy is None else busy / n)
+        del runner
+        gc.collect()
+    return ("; device busy a replayed step in turns baseline, this, this, "
+            "baseline: " + ", ".join(fmt_ms(t) for t in turns))
 
 
 def run_dispatch(tmp: Path, card: str, train_cfg, train_res, resumed_res,
@@ -3748,6 +3826,7 @@ def main(argv=None) -> int:
         check_k1(dev, *shape, rows=f"{row} value")
         check_k4(dev, *shape, rows=f"{row} ddy,ddx")
     check_k1_ragged(dev)
+    check_k4_edges(dev)
     kernels.append(check_k5_all(dev))
     kernels += check_solve_all(dev)
     paths = {"eval": run_slice(args.profile)}

@@ -15,6 +15,8 @@ output's largest magnitude (the kernel may contract a*b+c into one fma
 where the plain version rounds twice).
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -80,11 +82,17 @@ def test_epdiff_step_kernel_matches_plain(cuda):
     assert np.isfinite(uk.cpu().numpy()).all()
 
 
-def test_mc_warp_disp_bwd_kernel_matches_plain(cuda):
-    gen = torch.Generator().manual_seed(7)
-    img = _smooth(gen, (6, 2, 40, 36), 3.0, cuda)
-    disp = _smooth(gen, (6, 2, 40, 36), 15.0, cuda)
-    g = torch.randn((6, 2, 40, 36), generator=gen).to(cuda)
+# the CPU cases' shapes (tests/test_torch_ops.py): C = 3 takes the kernel's
+# two passes over the channels, a width of 37 its scalar loads and stores
+@pytest.mark.parametrize("shape, seed", [
+    pytest.param((6, 2, 40, 36), 7, id="2"),
+    pytest.param((2, 1, 32, 32), 31, id="1"),
+    pytest.param((2, 3, 30, 37), 33, id="3-30x37")])
+def test_mc_warp_disp_bwd_kernel_matches_plain(cuda, shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    img = _smooth(gen, shape, 3.0, cuda)
+    disp = _smooth(gen, (shape[0], 2, *shape[2:]), 15.0, cuda)
+    g = torch.randn(shape, generator=gen).to(cuda)
     assert (disp.abs() > 11).any()
     before = LAUNCHES["mc_warp_disp_bwd"]
     out = warp_kernels.mc_warp_disp_bwd(img, disp, g, 12)
@@ -453,6 +461,25 @@ def test_train_step_graph_replay_matches_eager_step(cuda):
         for i, slots in opt_g["state"].items():
             for k, v in slots.items():
                 assert torch.equal(v, opt_l["state"][i][k]), (name, i, k)
+
+
+def test_step_graph_captures_with_the_cycle_collector_off(cuda):
+    """A collection during a capture can destroy an unreachable earlier
+    graph, which CUDA refuses then: ``StepGraph`` captures with Python's
+    cycle collector off and turns it back on."""
+    from cardiax_torch.train.graphs import StepGraph
+    x = torch.zeros(8, device=cuda)
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        return x + 1
+
+    graph = StepGraph(step, cuda)
+    outs = [graph() for _ in range(3)]    # warm-up, capture, replay
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert all(torch.equal(o, torch.ones_like(x)) for o in outs)
 
 
 def test_prefetch_batcher_on_the_card_gives_the_host_batches(cuda):

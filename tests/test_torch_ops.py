@@ -148,18 +148,23 @@ def test_mc_warp_plain_matches_pallas_kernel(channels):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5)
 
 
-def _k4_inputs(channels, seed):
+def _k4_inputs(channels, seed, hw=(32, 32)):
     rng = np.random.default_rng(seed)
-    field = _smooth(rng, (2, channels, 32, 32), 2.0, 4.0)
-    disp = _fields(rng, (2, 2, 32, 32), 3.0, 15.0)   # up to +-15 px
+    field = _smooth(rng, (2, channels, *hw), 2.0, 4.0)
+    disp = _fields(rng, (2, 2, *hw), 3.0, 15.0)      # up to +-15 px
     g = rng.normal(size=field.shape).astype(np.float32)
     assert (np.abs(disp) > 11).mean() > 0.01          # the R-1 clamp bites
     return field, disp, g
 
 
-@pytest.mark.parametrize("channels", [1, 2])
-def test_mc_warp_disp_bwd_plain_matches_pallas_vjp(channels):
-    field, disp, g = _k4_inputs(channels, 30 + channels)
+# the last case sums three channels in the band sweep's order on a
+# non-square frame whose width is no multiple of 4
+@pytest.mark.parametrize("channels, hw, seed", [
+    pytest.param(1, (32, 32), 31, id="1"),
+    pytest.param(2, (32, 32), 32, id="2"),
+    pytest.param(3, (30, 37), 33, id="3-30x37")])
+def test_mc_warp_disp_bwd_plain_matches_pallas_vjp(channels, hw, seed):
+    field, disp, g = _k4_inputs(channels, seed, hw)
     _, vjp = jax.vjp(lambda f, d: _banded_warp_mc(f, d, 12, True, True),
                      jnp.asarray(field), jnp.asarray(disp))
     g_img, g_disp = vjp(jnp.asarray(g))
