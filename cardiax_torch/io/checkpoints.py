@@ -9,6 +9,11 @@ previous checkpoint intact. The newest ``max_to_keep`` files are kept.
 The state holds tensors (on the CPU), Python numbers, strings, lists and
 dicts only, so ``torch.load(..., weights_only=True)`` reads it and no
 pickled code runs on restore.
+
+A save is two spans of the host recorder (``io.profiling``):
+``ckpt.to_host``, the state's copy to the CPU, whose device tensors' bytes
+the counter ``ckpt.bytes_to_host`` adds up, and ``ckpt.write``, the file
+written, moved into place and the old ones deleted.
 """
 
 from __future__ import annotations
@@ -20,12 +25,17 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from cardiax_torch.io import profiling
+
 _NAME = re.compile(r"^epoch_(\d{6,})\.pt$")
 
 
 def to_cpu(tree: Any) -> Any:
-    """``tree`` with every tensor detached and copied to the CPU."""
+    """``tree`` with every tensor detached and copied to the CPU (the
+    bytes of those that were not on the CPU go to ``ckpt.bytes_to_host``)."""
     if isinstance(tree, torch.Tensor):
+        if not tree.is_cpu:
+            profiling.add("ckpt.bytes_to_host", tree.nbytes)
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
@@ -92,10 +102,13 @@ class CheckpointManager:
             state["best_params"] = best_params
         path = self._path(epoch)
         tmp = path.with_name(path.name + ".tmp")
-        torch.save(to_cpu(state), tmp)
-        os.replace(tmp, path)
-        for old in self.epochs()[:-self.max_to_keep]:
-            self._path(old).unlink()
+        with profiling.span("ckpt.to_host"):
+            host = to_cpu(state)
+        with profiling.span("ckpt.write"):
+            torch.save(host, tmp)
+            os.replace(tmp, path)
+            for old in self.epochs()[:-self.max_to_keep]:
+                self._path(old).unlink()
         return True
 
     def latest_epoch(self) -> Optional[int]:

@@ -12,19 +12,161 @@ compiled module run is in JAX's trace.
 Usage:
     python -m cardiax_torch.io.profiling <profile_dir> [top_k]
 or from the engine, which prints the summary when the window closes.
+
+The host recorder (``training.host_profile``): ``span(name)`` times a
+stretch of host work on ``time.perf_counter()`` and ``add(name, n)`` adds
+to a counter, each under the epoch the work belongs to (``set_epoch``).
+It is one object for the process, as ``ops.counters`` is, so that
+``io.checkpoints`` and ``train.graphs`` record without an engine; the
+engine and ``TrainerEngine.test`` switch it on for their call
+(``recording``). Off, a call checks one flag and keeps nothing. A span
+opened inside another also opens a ``torch.profiler`` range named
+``cardiax.<name>`` while a profiler records, so the program's own leaves
+sit in the device trace; the engine's phases, which are outermost, open
+none (a range over a whole phase would be the outermost host range over
+every idle gap in it and hide the leaf).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import sys
+import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
+
+import torch
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 STEP_SPAN = "train_step"
+
+# the spans and counters below the engine's phases that every row of
+# ``TrainerEngine.host_profile_rows`` carries (0 where the work did not run)
+ROW_SPANS = ("ckpt.to_host", "ckpt.write")
+ROW_COUNTERS = ("ckpt.bytes_to_host", "dispatch.steps", "dispatch.captures")
+
+
+class Span(NamedTuple):
+    name: str
+    parent: Optional[str]     # the span open around it, None if outermost
+    epoch: Optional[int]      # the epoch the work belongs to
+    t0: float                 # time.perf_counter()
+    t1: float
+
+
+class Recorder:
+    """Spans and counters of one recording, by epoch."""
+
+    def __init__(self) -> None:
+        self.on = False
+        self.epoch: Optional[int] = None
+        self.spans: Dict[Optional[int], List[Span]] = defaultdict(list)
+        self.counts: Dict[Tuple[Optional[int], str], int] = defaultdict(int)
+        self.open: List[str] = []
+
+    def clear(self) -> None:
+        self.epoch = None
+        self.spans.clear()
+        self.counts.clear()
+        self.open.clear()
+
+    def named(self, name: str) -> List[Span]:
+        """Every span called ``name``, in the order they closed within
+        each epoch."""
+        return [s for spans in self.spans.values() for s in spans
+                if s.name == name]
+
+    def row(self, epoch: Optional[int]) -> Dict[str, float]:
+        """Epoch ``epoch``'s view: the summed seconds of each outermost
+        span's name, ``t_done`` (the end of its ``total`` span), the
+        seconds of each of ``ROW_SPANS`` and the increase of each of
+        ``ROW_COUNTERS``."""
+        out: Dict[str, float] = {}
+        for s in self.spans.get(epoch, ()):
+            if s.parent is None or s.name in ROW_SPANS:
+                out[s.name] = out.get(s.name, 0.0) + (s.t1 - s.t0)
+            if s.name == "total" and s.parent is None:
+                out["t_done"] = s.t1
+        for name in ROW_SPANS:
+            out.setdefault(name, 0.0)
+        for name in ROW_COUNTERS:
+            out[name] = self.counts.get((epoch, name), 0)
+        return out
+
+
+RECORDER = Recorder()
+_OFF = contextlib.nullcontext()
+
+
+class _Open:
+    __slots__ = ("name", "parent", "epoch", "t0", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Open":
+        rec = RECORDER
+        self.parent = rec.open[-1] if rec.open else None
+        self.epoch = rec.epoch
+        self.range = None
+        if self.parent is not None and torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(
+                "cardiax." + self.name)
+            self.range.__enter__()
+        rec.open.append(self.name)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.perf_counter()
+        rec = RECORDER
+        rec.open.pop()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        rec.spans[self.epoch].append(
+            Span(self.name, self.parent, self.epoch, self.t0, t1))
+
+
+def span(name: str):
+    """A context manager that records ``name``'s span while recording."""
+    return _Open(name) if RECORDER.on else _OFF
+
+
+def add(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the current epoch while
+    recording."""
+    if RECORDER.on:
+        RECORDER.counts[(RECORDER.epoch, name)] += n
+
+
+def set_epoch(epoch: Optional[int]) -> None:
+    """The epoch that the spans and counts from now on belong to."""
+    RECORDER.epoch = epoch
+
+
+def note(name: str, t0: float, t1: float) -> None:
+    """An outermost span of the current epoch timed by the caller (one
+    that no ``with`` block can hold, such as an epoch whose work
+    interleaves with the next one's under pipelining)."""
+    if RECORDER.on:
+        RECORDER.spans[RECORDER.epoch].append(
+            Span(name, None, RECORDER.epoch, t0, t1))
+
+
+@contextlib.contextmanager
+def recording(on: bool) -> Iterator[Recorder]:
+    """Clear the recorder and record (``on``) or not inside the block; what
+    was recorded stays readable after it."""
+    was = RECORDER.on
+    RECORDER.clear()
+    RECORDER.on = bool(on)
+    try:
+        yield RECORDER
+    finally:
+        RECORDER.on = was
 
 
 def _find_trace_files(profile_dir: str | Path) -> List[Path]:

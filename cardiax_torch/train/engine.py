@@ -66,6 +66,7 @@ import torch
 from cardiax_torch.data.loader import Batcher, DeviceBatcher
 from cardiax_torch.data.prefetch import PrefetchBatcher
 from cardiax_torch.device import resolve_device
+from cardiax_torch.io import profiling
 from cardiax_torch.io.checkpoints import CheckpointManager
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.io.profiling import STEP_SPAN, print_trace_summary
@@ -500,13 +501,33 @@ class TrainerEngine:
         runs on the card, takes a host loader's batches through a
         ``PrefetchBatcher`` (JAX's engine has one and never calls it; the
         batches are the same). ``others.profile_dir``
-        traces steps 2..``profile_steps`` + 1 of the step loop instead, and
-        ``training.host_profile`` records each epoch's host phases on
-        ``host_profile_rows``. ``last_fuse_engaged``,
-        ``last_fuse_trainval`` and ``last_pipeline_engaged`` say what ran.
+        traces steps 2..``profile_steps`` + 1 of the step loop instead.
+        ``last_fuse_engaged``, ``last_fuse_trainval`` and
+        ``last_pipeline_engaged`` say what ran.
+
+        ``training.host_profile`` turns the host recorder on
+        (``io.profiling``) and appends one row an epoch to
+        ``host_profile_rows``, as the epoch's work ends: the seconds of
+        JAX's host phases that ran in it (``plan``, ``dispatch``, ``sync``,
+        ``val``, ``track``, ``beststop``, ``ckpt``; ``total`` from the
+        epoch's start to its row, and ``t_done``, the host clock there),
+        and, in every row, 0 where the work did not run, the seconds of
+        ``ckpt.to_host`` (the checkpoint's state copied to the CPU) and
+        ``ckpt.write`` (its file and ``best_metrics.json`` written), the
+        counts ``ckpt.bytes_to_host`` (bytes of device tensors copied to the
+        CPU), ``dispatch.steps`` (``StepGraph`` calls: the fused epoch's
+        train and val steps) and ``dispatch.captures`` (CUDA graphs
+        captured). Under ``epoch_pipeline`` each row holds its own epoch's
+        work, though epoch k's ``sync`` runs after epoch k+1's dispatch.
         """
-        self._check_device(device)
         cfg = trainer_config or self.trainer_config
+        with profiling.recording(bool(cfg.get("host_profile", False))):
+            return self._train(models, datasets, cfg, full_config, device,
+                               use_tensorboard, use_wandb, tracker)
+
+    def _train(self, models, datasets, cfg, full_config, device,
+               use_tensorboard, use_wandb, tracker):
+        self._check_device(device)
         full = full_config or self.full_config
         others = full.get("others", {}) or {}
         saving = full.get("saving", {}) or {}
@@ -672,28 +693,24 @@ class TrainerEngine:
                 rec = pipe_q.pop(0)
             else:
                 t_epoch = time.perf_counter()
-                ht = {} if host_profile else None
+                profiling.set_epoch(epoch)
                 # epoch-indexed shuffle (loader.epoch_permutation)
                 train_loader.set_epoch(epoch)
                 run_val_now = val_loader is not None and (
                     epoch % valid_period == 0 or epoch == epochs - 1)
                 if fuse_train is not None:
-                    t0 = time.perf_counter()
-                    idx_mat, mask_mat = train_loader.epoch_plan()
-                    if ht is not None:
-                        ht["plan"] = time.perf_counter() - t0
-                        t0 = time.perf_counter()
-                    if fuse_trainval is not None and run_val_now:
-                        vidx_mat, vmask_mat = val_loader.epoch_plan()
-                        parts = fuse_trainval(idx_mat, mask_mat, vidx_mat,
-                                              vmask_mat)
-                    else:
-                        parts = [(fuse_train(idx_mat, mask_mat),
-                                  fuse_train.keys)]
-                    flat, layout = stack_values(parts)
-                    if ht is not None:
-                        ht["dispatch"] = time.perf_counter() - t0
-                    rec = {"epoch": epoch, "t_epoch": t_epoch, "ht": ht,
+                    with profiling.span("plan"):
+                        idx_mat, mask_mat = train_loader.epoch_plan()
+                    with profiling.span("dispatch"):
+                        if fuse_trainval is not None and run_val_now:
+                            vidx_mat, vmask_mat = val_loader.epoch_plan()
+                            parts = fuse_trainval(idx_mat, mask_mat,
+                                                  vidx_mat, vmask_mat)
+                        else:
+                            parts = [(fuse_train(idx_mat, mask_mat),
+                                      fuse_train.keys)]
+                        flat, layout = stack_values(parts)
+                    rec = {"epoch": epoch, "t_epoch": t_epoch,
                            "run_val_now": run_val_now,
                            "n_batches": int(idx_mat.shape[0]),
                            "flat": flat, "layout": layout}
@@ -711,12 +728,11 @@ class TrainerEngine:
             pending_val = None    # val values from the combined pass
             if rec is not None:
                 proc_epoch = int(rec["epoch"])
-                t_epoch, ht = rec["t_epoch"], rec["ht"]
+                profiling.set_epoch(proc_epoch)
+                t_epoch = rec["t_epoch"]
                 run_val_now = rec["run_val_now"]
-                t0 = time.perf_counter()
-                synced = read_values(rec["flat"], rec["layout"])
-                if ht is not None:
-                    ht["sync"] = time.perf_counter() - t0
+                with profiling.span("sync"):
+                    synced = read_values(rec["flat"], rec["layout"])
                 train_values = synced[0]
                 if len(synced) > 1:
                     pending_val = synced[1]
@@ -764,21 +780,22 @@ class TrainerEngine:
 
             epoch_total_val = None
             if run_val_now:
-                t_val = time.perf_counter()
-                if pending_val is not None:
-                    val_values = pending_val
-                elif fuse_val is not None:
-                    vidx_mat, vmask_mat = val_loader.epoch_plan()
-                    val_values = read_values(*stack_values(
-                        [(fuse_val(vidx_mat, vmask_mat), fuse_val.keys)]))[0]
-                else:
-                    val_values = _stack([self.eval_step(self.to_device(b))[0]
-                                         for b in self._feed(val_loader)])
-                for k, v in val_values.items():
-                    epoch_metrics[f"{prefix}val/{k}"] = float(v.mean())
-                epoch_total_val = epoch_metrics.get(f"{prefix}val/total_loss")
-                if ht is not None:
-                    ht["val"] = time.perf_counter() - t_val
+                with profiling.span("val"):
+                    if pending_val is not None:
+                        val_values = pending_val
+                    elif fuse_val is not None:
+                        vidx_mat, vmask_mat = val_loader.epoch_plan()
+                        val_values = read_values(*stack_values(
+                            [(fuse_val(vidx_mat, vmask_mat),
+                              fuse_val.keys)]))[0]
+                    else:
+                        val_values = _stack(
+                            [self.eval_step(self.to_device(b))[0]
+                             for b in self._feed(val_loader)])
+                    for k, v in val_values.items():
+                        epoch_metrics[f"{prefix}val/{k}"] = float(v.mean())
+                    epoch_total_val = epoch_metrics.get(
+                        f"{prefix}val/total_loss")
             if log_wall:
                 # under pipelining an epoch's dispatch-to-processed span
                 # overlaps the next one's: log the cadence instead
@@ -790,11 +807,9 @@ class TrainerEngine:
                     epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
                         now - t_epoch
                 last_wall_done_t = now
-            t_track = time.perf_counter()
-            tracker.log(epoch_metrics, step=proc_epoch)
-            history.append(dict(epoch_metrics))
-            if ht is not None:
-                ht["track"] = time.perf_counter() - t_track
+            with profiling.span("track"):
+                tracker.log(epoch_metrics, step=proc_epoch)
+                history.append(dict(epoch_metrics))
             if vis_every and proc_epoch % vis_every == 0 \
                     and val_loader is not None:
                 # under pipelining the modules hold the next epoch's
@@ -813,45 +828,43 @@ class TrainerEngine:
                 monitor = epoch_metrics.get(f"{prefix}train/total_loss",
                                             float("inf"))
             stop = False
-            t_best = time.perf_counter()
-            if monitor is not None:
-                if monitor < best_val:
-                    best_val = monitor
-                    best_state = rec["snap"] if rec is not None \
-                        and "snap" in rec else self._snapshot()
-                    best_epoch = proc_epoch
-                    best_epoch_metrics = dict(epoch_metrics)
-                    epochs_without_improvement = 0
-                else:
-                    epochs_without_improvement += 1
-                    stop = epochs_without_improvement > tolerance
-            if ht is not None:
-                ht["beststop"] = time.perf_counter() - t_best
-                t_ckpt = time.perf_counter()
+            with profiling.span("beststop"):
+                if monitor is not None:
+                    if monitor < best_val:
+                        best_val = monitor
+                        best_state = rec["snap"] if rec is not None \
+                            and "snap" in rec else self._snapshot()
+                        best_epoch = proc_epoch
+                        best_epoch_metrics = dict(epoch_metrics)
+                        epochs_without_improvement = 0
+                    else:
+                        epochs_without_improvement += 1
+                        stop = epochs_without_improvement > tolerance
             # after the early-stop update, so the saved counters hold this
             # epoch's decision
-            if ckpt is not None and self._writes:
-                saved = ckpt.save(
-                    proc_epoch, self._snapshot(), self._optimizer_states(),
-                    best_params=best_state,
-                    extra={"epoch": proc_epoch, "best_val": float(best_val),
-                           "best_epoch": best_epoch,
-                           "epochs_without_improvement":
-                               epochs_without_improvement,
-                           **self._rng_states()})
-                if saved:
-                    best_metrics_path.write_text(
-                        json.dumps(best_epoch_metrics))
-            if ckpt is not None:
-                barrier(self.mesh)
-            if ht is not None:
-                ht["ckpt"] = time.perf_counter() - t_ckpt
+            with profiling.span("ckpt"):
+                if ckpt is not None and self._writes:
+                    saved = ckpt.save(
+                        proc_epoch, self._snapshot(),
+                        self._optimizer_states(), best_params=best_state,
+                        extra={"epoch": proc_epoch,
+                               "best_val": float(best_val),
+                               "best_epoch": best_epoch,
+                               "epochs_without_improvement":
+                                   epochs_without_improvement,
+                               **self._rng_states()})
+                    if saved:
+                        with profiling.span("ckpt.write"):
+                            best_metrics_path.write_text(
+                                json.dumps(best_epoch_metrics))
+                if ckpt is not None:
+                    barrier(self.mesh)
+            if host_profile:
                 # `total` spans dispatch to processed; under pipelining
                 # consecutive totals overlap, and the cadence is the
                 # difference of consecutive `t_done` stamps
-                ht["total"] = time.perf_counter() - t_epoch
-                ht["t_done"] = time.perf_counter()
-                host_rows.append(ht)
+                profiling.note("total", t_epoch, time.perf_counter())
+                host_rows.append(profiling.RECORDER.row(proc_epoch))
             if stop:
                 break
 
@@ -999,7 +1012,9 @@ class TrainerEngine:
         (default true) batch k+1's step is enqueued before batch k's
         predictions are read: the same steps on the same inputs, so the
         predictions are those of the unpipelined loop bit for bit. The loss
-        values come back in one copy at the end."""
+        values come back in one copy at the end. ``training.host_profile``
+        records the call's graph warm-up and capture (``graph.warmup``,
+        ``graph.capture``) on the host recorder (``io.profiling``)."""
         self._check_device(device)
         cfg = trainer_config or self.trainer_config
         batch_size = int(cfg.get("batch_size", 10))
@@ -1045,15 +1060,16 @@ class TrainerEngine:
 
         pipeline = bool(cfg.get("eval_pipeline", True))
         pending = None
-        for batch in loader:
-            values, pred = run(self.to_device(batch))
-            step_values.append(values)
-            if pipeline:
-                if pending is not None:
-                    consume(*pending)
-                pending = (batch, pred)
-            else:
-                consume(batch, pred)
+        with profiling.recording(bool(cfg.get("host_profile", False))):
+            for batch in loader:
+                values, pred = run(self.to_device(batch))
+                step_values.append(values)
+                if pipeline:
+                    if pending is not None:
+                        consume(*pending)
+                    pending = (batch, pred)
+                else:
+                    consume(batch, pred)
         if pending is not None:
             consume(*pending)
         perf = self.scheme.performance(preds, target_dataset)

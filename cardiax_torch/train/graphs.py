@@ -31,6 +31,12 @@ records how many launches the graph holds and takes them back off (the
 capture launched nothing), and each replay adds them again: the counts stay
 what the device ran.
 
+``StepGraph`` counts its own calls, captures and replays; the warm-up and
+the capture are spans of the host recorder (``io.profiling``:
+``graph.warmup``, ``graph.capture``), and ``EpochRunner`` hands each
+epoch's increase of the calls and captures to the recorder
+(``dispatch.steps``, ``dispatch.captures``). A replay opens no span.
+
 JAX's ``epoch_fuse_max_steps`` caps how far its scan unrolls; a captured
 step has no counterpart, so the key has no effect here.
 """
@@ -43,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from cardiax_torch.io import profiling
 from cardiax_torch.ops import counters
 
 
@@ -50,21 +57,25 @@ class StepGraph:
     """``fn()`` run eagerly once, then captured and replayed on the card;
     always eager on the CPU or without ``capture``. ``__call__`` returns
     ``fn``'s outputs (the graph's static outputs once captured: the next
-    call overwrites them)."""
+    call overwrites them). ``calls``, ``captures`` and ``replays`` count
+    what it did."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device,
                  capture: bool = True):
         self.fn = fn
-        self.captures = torch.device(device).type == "cuda" and capture
+        self.graphed = torch.device(device).type == "cuda" and capture
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.launches: Dict[str, int] = {}
+        self.calls = 0
+        self.captures = 0
         self.replays = 0
         self._warm = False
-        self._stream = torch.cuda.Stream(device) if self.captures else None
+        self._stream = torch.cuda.Stream(device) if self.graphed else None
 
     def __call__(self) -> Any:
-        if not self.captures:
+        self.calls += 1
+        if not self.graphed:
             return self.fn()
         if self.graph is None:
             if not self._warm:
@@ -77,32 +88,35 @@ class StepGraph:
 
     def _warm_up(self) -> Any:
         stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            out = self.fn()
-        torch.cuda.current_stream().wait_stream(stream)
+        with profiling.span("graph.warmup"):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                out = self.fn()
+            torch.cuda.current_stream().wait_stream(stream)
         self._warm = True
         return out
 
     def _capture(self) -> None:
-        before = counters.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        # Python's cycle collector stays off while the step is captured: a
-        # collection there can destroy an unreachable earlier graph (an
-        # earlier run's engine, such as the last k-fold fold's), a call that
-        # CUDA refuses during a capture and that invalidates it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                self.outputs = self.fn()
-        finally:
-            if collecting:
-                gc.enable()
-        after = counters.snapshot()
+        with profiling.span("graph.capture"):
+            before = counters.snapshot()
+            graph = torch.cuda.CUDAGraph()
+            # Python's cycle collector stays off while the step is captured:
+            # a collection there can destroy an unreachable earlier graph (an
+            # earlier run's engine, such as the last k-fold fold's), a call
+            # that CUDA refuses during a capture and that invalidates it
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=self._stream):
+                    self.outputs = self.fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            after = counters.snapshot()
         self.launches = {k: after[k] - before[k] for k in before}
         counters.add(self.launches, -1)    # the capture ran nothing
         self.graph = graph
+        self.captures += 1
 
 
 class EpochRunner:
@@ -153,10 +167,13 @@ class EpochRunner:
         _upload(self.idx, idx_mat)
         _upload(self.mask, mask_mat)
         self.row.zero_()
+        calls, captures = self.graph.calls, self.graph.captures
         for _ in range(idx_mat.shape[0]):
             self.graph()
             if self.after_step is not None:
                 self.after_step()
+        profiling.add("dispatch.steps", self.graph.calls - calls)
+        profiling.add("dispatch.captures", self.graph.captures - captures)
         return self.out
 
 

@@ -20,7 +20,8 @@
   and the same initial weights, within the tolerance
   ``tests/test_epoch_fuse.py::_assert_same`` holds JAX's own fused run to
   against its loop (1e-4 at epoch 0, 5e-3 after), and the
-  ``host_profile_rows`` keys of the two;
+  ``host_profile_rows`` keys of the two (the port's five dotted keys
+  aside);
 * ``summarize_trace`` on a synthetic ``torch.profiler`` Chrome trace, a
   host-only trace and a missing directory (after
   ``tests/test_profiling.py``), and ``others.profile_dir`` writing a trace
@@ -51,7 +52,8 @@ from cardiax_torch.data.loader import Batcher, DeviceBatcher
 from cardiax_torch.data.prefetch import PrefetchBatcher
 from cardiax_torch.data.synthetic import add_displacement_fields, make_dataset
 from cardiax_torch.io.convert import params_from_flax
-from cardiax_torch.io.profiling import format_summary, summarize_trace
+from cardiax_torch.io.profiling import (ROW_COUNTERS, ROW_SPANS,
+                                        format_summary, summarize_trace)
 from cardiax_torch.models import build_model
 from cardiax_torch.ops import svd_smooth
 from cardiax_torch.train import build_trainer
@@ -467,7 +469,7 @@ def test_auto_run_matches_jax_auto_run():
     initial weights (JAX's, drawn by its ``setup``, carried over): the
     per-epoch metrics within ``_assert_same``'s tolerance (1e-4 relative
     and absolute at epoch 0, 5e-3 after), the same engagement, the same
-    ``host_profile_rows`` keys."""
+    ``host_profile_rows`` keys (the port's five dotted keys aside)."""
     cfg = _lma_cfg(epochs=3, host_profile=True)
     mesh = get_mesh((1,), ("data",), devices=jax.devices()[:1])
     jax_ds = jax_build_datasets(_lma_ds_cfg(), _splits())
@@ -497,8 +499,16 @@ def test_auto_run_matches_jax_auto_run():
                                    err_msg=f"{k} (epoch 0)")
         np.testing.assert_allclose(hg[k], hw[k], rtol=5e-3, atol=5e-3,
                                    err_msg=k)
-    assert [sorted(r) for r in eng.host_profile_rows] == \
+    # the port's rows add dotted keys (spans and counters below JAX's
+    # phases); without them they have JAX's keys, and they are the five
+    # documented ones
+    assert [sorted(k for k in r if "." not in k)
+            for r in eng.host_profile_rows] == \
         [sorted(r) for r in trainer.host_profile_rows]
+    assert all({k for k in r if "." in k} == set(ROW_SPANS + ROW_COUNTERS)
+               == {"ckpt.to_host", "ckpt.write", "ckpt.bytes_to_host",
+                   "dispatch.steps", "dispatch.captures"}
+               for r in eng.host_profile_rows)
     assert len(eng.host_profile_rows) == 3
 
 

@@ -377,23 +377,10 @@ def test_expmap_shooting_fused_solve_launches_k6(cuda, monkeypatch):
     assert torch.isfinite(u).all()
 
 
-def test_train_step_graph_replay_matches_eager_step(cuda):
-    """The fused epoch on the card (``train.graphs``): the train step
-    warmed up, captured and replayed over a device-resident dataset gives
-    the step loop's loss values, parameters and optimizer state bit for bit
-    under PyTorch's deterministic mode (``device.deterministic``: cuDNN's
-    backward may otherwise sum in another order from run to run), and the
-    launch counters hold what the device ran (K2 n_steps x Euler steps a
-    batch, K1/K4 one a batch) though a replay runs no Python."""
-    import copy
-
-    from cardiax_torch.data.datasets import JointDataset
-    from cardiax_torch.data.loader import DeviceBatcher
-    from cardiax_torch.data.synthetic import make_dataset
-    from cardiax_torch.models import build_model
-    from cardiax_torch.train import build_trainer
-    from cardiax_torch.train.graphs import EpochRunner
-    cfg = {
+def _small_joint_cfg():
+    """The flagship at 32^2 with T = 4 (3 pairs) and Ts = 8, its
+    reconstruction loss alone."""
+    return {
         "networks": {
             "joint_register_strainmat": {
                 "type": "JointRegisterStrainMatNet",
@@ -415,6 +402,25 @@ def test_train_step_graph_replay_matches_eager_step(cuda):
             "prediction": "various", "target": "registration_target",
             "weight": 1.0, "sigma": 0.03, "regularization_weight": 0.1}},
     }
+
+
+def test_train_step_graph_replay_matches_eager_step(cuda):
+    """The fused epoch on the card (``train.graphs``): the train step
+    warmed up, captured and replayed over a device-resident dataset gives
+    the step loop's loss values, parameters and optimizer state bit for bit
+    under PyTorch's deterministic mode (``device.deterministic``: cuDNN's
+    backward may otherwise sum in another order from run to run), and the
+    launch counters hold what the device ran (K2 n_steps x Euler steps a
+    batch, K1/K4 one a batch) though a replay runs no Python."""
+    import copy
+
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.loader import DeviceBatcher
+    from cardiax_torch.data.synthetic import make_dataset
+    from cardiax_torch.models import build_model
+    from cardiax_torch.train import build_trainer
+    from cardiax_torch.train.graphs import EpochRunner
+    cfg = _small_joint_cfg()
     ds = JointDataset(make_dataset(n_subjects=4, slices_per_subject=1, h=32,
                                    w=32, n_frames=4, seed=1),
                       dataset_config={"n_myo_frames_to_use_for_regression": 4,
@@ -480,6 +486,68 @@ def test_step_graph_captures_with_the_cycle_collector_off(cuda):
     torch.cuda.synchronize()
     assert seen == [True, False] and gc.isenabled()
     assert all(torch.equal(o, torch.ones_like(x)) for o in outs)
+
+
+def saved_tensor_bytes(path):
+    """A checkpoint file's tensor bytes: (all of them, the training
+    state's), the second without ``extra``, whose generator states are
+    born on the CPU."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+
+    def size(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.nbytes
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(size(v) for v in tree)
+        return 0
+    return size(state), size({k: v for k, v in state.items()
+                              if k != "extra"})
+
+
+def test_host_recorder_counts_graphs_and_checkpoint_bytes(cuda, tmp_path):
+    """``training.host_profile`` on the card: each fused runner's
+    ``StepGraph`` captures once, in epoch 0 (``dispatch.captures`` 2 there,
+    for the train and val runners, then 0), ``dispatch.steps`` counts
+    every call, ``ckpt.bytes_to_host`` is the saved training state's bytes
+    (the generators' states, born on the CPU, left out), and one ``test``
+    call of two batches records one ``graph.warmup`` and one
+    ``graph.capture`` span."""
+    from cardiax_torch.data.datasets import JointDataset
+    from cardiax_torch.data.synthetic import make_dataset
+    from cardiax_torch.io import profiling
+    from cardiax_torch.models import build_model
+    from cardiax_torch.train import build_trainer
+    cfg = _small_joint_cfg()
+    cfg["training"].update(batch_size=3, epochs=3, host_profile=True)
+    cfg["saving"] = {"saving_dir": str(tmp_path), "save_checkpoint": True}
+    data = make_dataset(n_subjects=10, slices_per_subject=1, h=32, w=32,
+                        n_frames=4, seed=1)
+    ds_cfg = {"n_myo_frames_to_use_for_regression": 4,
+              "n_strainmat_frames_to_use_for_regression": 8}
+    # 6 train and 4 val slices at batch 3: two steps each an epoch
+    datasets = {"train": JointDataset(data[:6], dataset_config=ds_cfg),
+                "val": JointDataset(data[6:], dataset_config=ds_cfg)}
+    nets = {n: build_model(mc, n_pairs=3) for n, mc in cfg["networks"].items()}
+    eng = build_trainer(cfg["training"], "cuda", cfg)
+    exp, _ = eng.train(nets, datasets)
+    assert eng.last_fuse_trainval is True
+    rows = eng.host_profile_rows
+    assert [r["dispatch.captures"] for r in rows] == [2, 0, 0]
+    assert [r["dispatch.steps"] for r in rows] == [4, 4, 4]
+    assert [r.graph.captures for r in eng._runners.values()] == [1, 1]
+    total, state = saved_tensor_bytes(
+        tmp_path / "checkpoints" / "epoch_000002.pt")
+    assert 0 < state < total
+    assert all(r["ckpt.bytes_to_host"] == state for r in rows)
+    assert all(0 < r["ckpt.to_host"] + r["ckpt.write"] <= r["ckpt"]
+               for r in rows)
+    eng.test(exp, {"test": datasets["val"]},
+             trainer_config=cfg["training"])
+    rec = profiling.RECORDER
+    assert len(rec.named("graph.warmup")) == len(rec.named("graph.capture")) \
+        == 1
 
 
 def test_prefetch_batcher_on_the_card_gives_the_host_batches(cuda):
