@@ -19,12 +19,19 @@ to a counter, each under the epoch the work belongs to (``set_epoch``).
 It is one object for the process, as ``ops.counters`` is, so that
 ``io.checkpoints`` and ``train.graphs`` record without an engine; the
 engine and ``TrainerEngine.test`` switch it on for their call
-(``recording``). Off, a call checks one flag and keeps nothing. A span
-opened inside another also opens a ``torch.profiler`` range named
-``cardiax.<name>`` while a profiler records, so the program's own leaves
-sit in the device trace; the engine's phases, which are outermost, open
-none (a range over a whole phase would be the outermost host range over
-every idle gap in it and hide the leaf).
+(``recording``). Off, a call checks one flag and keeps nothing. Each
+thread keeps its own stack of open spans, so a span on another thread
+(the checkpoint's writer) neither takes a parent from the engine's thread
+nor gives one to it. A span belongs to the epoch that is current where it
+is made, which lets one thread make a span that another enters. A span
+opened inside another, or on a thread other than the one recording, also
+opens a ``torch.profiler`` range named ``cardiax.<name>`` while a profiler
+records, so the program's own leaves sit in the device trace; the
+engine's phases, which are outermost on the recording thread, open none (a
+range over a whole phase would be the outermost host range over every
+idle gap in it and hide the leaf). A profiler records another thread's
+ranges only where it profiles every thread
+(``_ExperimentalConfig(profile_all_threads=True)``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import contextlib
 import gzip
 import json
 import sys
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -45,8 +53,9 @@ STEP_SPAN = "train_step"
 
 # the spans and counters below the engine's phases that every row of
 # ``TrainerEngine.host_profile_rows`` carries (0 where the work did not run)
-ROW_SPANS = ("ckpt.to_host", "ckpt.write")
-ROW_COUNTERS = ("ckpt.bytes_to_host", "dispatch.steps", "dispatch.captures")
+ROW_SPANS = ("ckpt.wait", "ckpt.to_host", "ckpt.write")
+ROW_COUNTERS = ("ckpt.bytes_to_host", "ckpt.write_waits", "dispatch.steps",
+                "dispatch.captures")
 
 
 class Span(NamedTuple):
@@ -65,13 +74,21 @@ class Recorder:
         self.epoch: Optional[int] = None
         self.spans: Dict[Optional[int], List[Span]] = defaultdict(list)
         self.counts: Dict[Tuple[Optional[int], str], int] = defaultdict(int)
-        self.open: List[str] = []
+        self.local = threading.local()      # each thread's open spans
+        self.thread = threading.get_ident()     # the one recording
 
     def clear(self) -> None:
         self.epoch = None
         self.spans.clear()
         self.counts.clear()
-        self.open.clear()
+        self.local = threading.local()
+
+    def stack(self) -> List[str]:
+        """The names of the spans open on the calling thread, innermost
+        last."""
+        if not hasattr(self.local, "open"):
+            self.local.open = []
+        return self.local.open
 
     def named(self, name: str) -> List[Span]:
         """Every span called ``name``, in the order they closed within
@@ -102,36 +119,39 @@ _OFF = contextlib.nullcontext()
 
 
 class _Open:
-    __slots__ = ("name", "parent", "epoch", "t0", "range")
+    __slots__ = ("name", "parent", "epoch", "t0", "range", "stack")
 
     def __init__(self, name: str):
         self.name = name
+        self.epoch = RECORDER.epoch
 
     def __enter__(self) -> "_Open":
         rec = RECORDER
-        self.parent = rec.open[-1] if rec.open else None
-        self.epoch = rec.epoch
+        self.stack = rec.stack()
+        self.parent = self.stack[-1] if self.stack else None
         self.range = None
-        if self.parent is not None and torch.autograd._profiler_enabled():
+        if (self.parent is not None or threading.get_ident() != rec.thread) \
+                and torch.autograd.profiler._is_profiler_enabled:
             self.range = torch.profiler.record_function(
                 "cardiax." + self.name)
             self.range.__enter__()
-        rec.open.append(self.name)
+        self.stack.append(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter()
-        rec = RECORDER
-        rec.open.pop()
+        self.stack.pop()
         if self.range is not None:
             self.range.__exit__(*exc)
-        rec.spans[self.epoch].append(
+        RECORDER.spans[self.epoch].append(
             Span(self.name, self.parent, self.epoch, self.t0, t1))
 
 
 def span(name: str):
-    """A context manager that records ``name``'s span while recording."""
+    """A context manager that records ``name``'s span while recording,
+    under the epoch current here (``set_epoch``), whichever thread enters
+    it."""
     return _Open(name) if RECORDER.on else _OFF
 
 
@@ -162,6 +182,7 @@ def recording(on: bool) -> Iterator[Recorder]:
     was recorded stays readable after it."""
     was = RECORDER.on
     RECORDER.clear()
+    RECORDER.thread = threading.get_ident()
     RECORDER.on = bool(on)
     try:
         yield RECORDER

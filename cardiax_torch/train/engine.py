@@ -23,10 +23,12 @@ contract and the TOS metrics) and ``TrainerEngine``:
   (``training.eval_pipeline``).
 
 ``train`` also takes a checkpoint of the whole training state after each
-epoch's early-stop update (``saving.save_checkpoint``, ``io.checkpoints``),
-resumes from the latest one exactly (``training.resume``), and draws the
-periodic figure of the first val batch (``others.wandb_visualize_interval``,
-``Scheme.visualize``).
+epoch's early-stop update (``saving.save_checkpoint``, ``io.checkpoints``;
+the file is written on the manager's writer thread while the next epoch
+runs, and ``train`` returns or raises only after the last write has
+ended), resumes from the latest one exactly (``training.resume``), and
+draws the periodic figure of the first val batch
+(``others.wandb_visualize_interval``, ``Scheme.visualize``).
 
 With a ``mesh`` (``cardiax_torch.parallel``: one process a card, joined by
 ``torch.distributed``) the engine is data parallel with JAX's semantics:
@@ -46,7 +48,8 @@ every loss value, gradient and prediction is the one-device run's:
 * ``test`` gathers the ranks' predictions in rank order, so every rank
   returns the one-device predictions;
 * rank 0 alone writes files (checkpoints, metrics, figures, the profiler
-  window), then every rank waits at a barrier; every rank reads a
+  window), then every rank waits at a barrier (a checkpoint's file is
+  written after it, on rank 0's writer thread); every rank reads a
   checkpoint to resume. JAX writes from every process; two ranks here
   would race on the checkpoint retention's deletions.
 """
@@ -512,21 +515,26 @@ class TrainerEngine:
         ``val``, ``track``, ``beststop``, ``ckpt``; ``total`` from the
         epoch's start to its row, and ``t_done``, the host clock there),
         and, in every row, 0 where the work did not run, the seconds of
+        ``ckpt.wait`` (the save waiting for the previous epoch's write),
         ``ckpt.to_host`` (the checkpoint's state copied to the CPU) and
-        ``ckpt.write`` (its file and ``best_metrics.json`` written), the
-        counts ``ckpt.bytes_to_host`` (bytes of device tensors copied to the
-        CPU), ``dispatch.steps`` (``StepGraph`` calls: the fused epoch's
+        ``ckpt.write`` (its file and ``best_metrics.json`` written on the
+        checkpoint's writer thread while the next epoch runs: filled into
+        the rows when training ends), the counts ``ckpt.bytes_to_host``
+        (bytes of device tensors copied to the CPU), ``ckpt.write_waits``
+        (saves that found the previous write unfinished),
+        ``dispatch.steps`` (``StepGraph`` calls: the fused epoch's
         train and val steps) and ``dispatch.captures`` (CUDA graphs
         captured). Under ``epoch_pipeline`` each row holds its own epoch's
         work, though epoch k's ``sync`` runs after epoch k+1's dispatch.
         """
         cfg = trainer_config or self.trainer_config
-        with profiling.recording(bool(cfg.get("host_profile", False))):
+        with profiling.recording(bool(cfg.get("host_profile", False))), \
+                contextlib.ExitStack() as on_exit:
             return self._train(models, datasets, cfg, full_config, device,
-                               use_tensorboard, use_wandb, tracker)
+                               use_tensorboard, use_wandb, tracker, on_exit)
 
     def _train(self, models, datasets, cfg, full_config, device,
-               use_tensorboard, use_wandb, tracker):
+               use_tensorboard, use_wandb, tracker, on_exit):
         self._check_device(device)
         full = full_config or self.full_config
         others = full.get("others", {}) or {}
@@ -582,6 +590,8 @@ class TrainerEngine:
                 Path(saving["saving_dir"]) / "checkpoints",
                 max_to_keep=int(saving.get("save_model_num", 3)),
                 save_interval_epochs=int(saving.get("checkpoint_interval", 1)))
+            # every exit, an exception's too, waits for the write in flight
+            on_exit.callback(ckpt.close)
             best_metrics_path = ckpt.directory / "best_metrics.json"
             if cfg.get("resume", False) and ckpt.latest_epoch() is not None:
                 state = ckpt.restore(template={"params": self._snapshot(),
@@ -608,6 +618,7 @@ class TrainerEngine:
         profiled = False
         host_profile = bool(cfg.get("host_profile", False))
         host_rows: List[Dict[str, float]] = []
+        row_epochs: List[int] = []
         self.host_profile_rows = host_rows
 
         # ---- fused epochs (training.epoch_fuse, JAX's policy): fuse when
@@ -844,7 +855,7 @@ class TrainerEngine:
             # epoch's decision
             with profiling.span("ckpt"):
                 if ckpt is not None and self._writes:
-                    saved = ckpt.save(
+                    ckpt.save(
                         proc_epoch, self._snapshot(),
                         self._optimizer_states(), best_params=best_state,
                         extra={"epoch": proc_epoch,
@@ -852,11 +863,9 @@ class TrainerEngine:
                                "best_epoch": best_epoch,
                                "epochs_without_improvement":
                                    epochs_without_improvement,
-                               **self._rng_states()})
-                    if saved:
-                        with profiling.span("ckpt.write"):
-                            best_metrics_path.write_text(
-                                json.dumps(best_epoch_metrics))
+                               **self._rng_states()},
+                        texts={best_metrics_path.name:
+                               json.dumps(best_epoch_metrics)})
                 if ckpt is not None:
                     barrier(self.mesh)
             if host_profile:
@@ -865,6 +874,7 @@ class TrainerEngine:
                 # difference of consecutive `t_done` stamps
                 profiling.note("total", t_epoch, time.perf_counter())
                 host_rows.append(profiling.RECORDER.row(proc_epoch))
+                row_epochs.append(proc_epoch)
             if stop:
                 break
 
@@ -872,6 +882,10 @@ class TrainerEngine:
             _stop_profiler(profiler, profile_dir)
         if ckpt is not None:
             ckpt.close()
+            # each epoch's write ended after its row was taken
+            for row, row_epoch in zip(host_rows, row_epochs):
+                row["ckpt.write"] = \
+                    profiling.RECORDER.row(row_epoch)["ckpt.write"]
         if best_epoch_metrics:
             tracker.log_best(best_epoch_metrics, step=best_epoch)
         elapsed = time.perf_counter() - t_start

@@ -1278,8 +1278,10 @@ def watched_main_run():
         t0 = time.perf_counter()
         wrote = save(self, epoch, *args, **kwargs)
         if wrote:
-            saves.append((time.perf_counter() - t0,
-                          self._path(epoch).stat().st_size))
+            # the save's own time; its file is written on the writer thread
+            took = time.perf_counter() - t0
+            self.wait()
+            saves.append((took, self._path(epoch).stat().st_size))
         return wrote
 
     def recorded_load(self, state):

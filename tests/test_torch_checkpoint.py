@@ -10,13 +10,22 @@
   epochs 2-3 (after ``tests/test_checkpoint.py::
   test_resume_equals_uninterrupted``);
 * the figures land at the epochs that ``wandb_visualize_interval`` gives,
-  and a failing figure warns once while training goes on.
+  and a failing figure warns once while training goes on;
+* the writer thread, its overlap forced by holding ``torch.save`` at a
+  gate: the file holds the state as it was at ``save`` though the caller
+  changes it in place while the write is held; one write in flight, in
+  order, with the retention and the texts of the last save; a writer's
+  error raised by the next ``save``, ``wait`` or ``close`` with no file
+  under the failed epoch's name; an exception inside ``train`` while a
+  write is held leaves that epoch's file whole.
 
 Everything runs on the CPU at 16^2 with 4 features: about 12 s.
 """
 
 import copy
 import json
+import threading
+import time
 import warnings
 
 import numpy as np
@@ -25,6 +34,7 @@ import torch
 
 from cardiax_torch.data.datasets import JointDataset
 from cardiax_torch.data.synthetic import make_dataset
+from cardiax_torch.io import checkpoints, profiling
 from cardiax_torch.io.checkpoints import CheckpointManager
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.models import build_model
@@ -237,3 +247,150 @@ def test_failing_figure_warns_once(tmp_path, monkeypatch):
     assert np.isfinite(exp["train_loss_dict"]["train/total_loss"]).all()
     assert json.loads((tmp_path / "checkpoints" / "best_metrics.json")
                       .read_text())
+
+
+# --------------------------------------------------------------------------- #
+# The writer thread                                                            #
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class Gate:
+    """``torch.save`` as the checkpoint writer calls it: each call records
+    its file's name; the writes of the epochs in ``held`` wait for
+    ``release`` (then ``after`` seconds more), and ``fail``'s raises."""
+
+    def __init__(self, monkeypatch, held=(), fail=None, after=0.0):
+        self.held, self.fail, self.after = set(held), fail, after
+        self.names = []
+        self.entered, self.release = threading.Event(), threading.Event()
+        self.save = torch.save
+        monkeypatch.setattr(checkpoints.torch, "save", self)
+
+    def __call__(self, obj, path):
+        self.names.append(path.name)
+        epoch = int(path.name[len("epoch_"):].split(".")[0])
+        if epoch == self.fail:
+            raise OSError("disk full")
+        if epoch in self.held:
+            self.entered.set()
+            assert self.release.wait(5)
+            time.sleep(self.after)
+        self.save(obj, path)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in _tensors(tree[k])]
+    return []
+
+
+def _files(directory):
+    return sorted(p.name for p in directory.glob("epoch_*.pt"))
+
+
+def test_the_file_holds_the_state_as_it_was_at_save(tmp_path, monkeypatch,
+                                                    one_thread):
+    gate = Gate(monkeypatch, held={0})
+    mgr = CheckpointManager(tmp_path / "ck")
+    state = {**_state(), "best_params": _state(3.0)["params"]}
+    before = copy.deepcopy(state)
+    assert mgr.save(0, state["params"], state["opt_states"],
+                    best_params=state["best_params"], force=True)
+    assert gate.entered.wait(5) and _files(tmp_path / "ck") == []
+    for t in _tensors(state):
+        t.add_(1)      # the next epoch's steps, in place
+    gate.release.set()
+    saved = mgr.restore(0)
+    got, want = _tensors({k: saved[k] for k in before}), _tensors(before)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    mgr.close()
+
+
+def test_one_write_in_flight_in_order(tmp_path, monkeypatch, one_thread):
+    gate = Gate(monkeypatch, held={0})
+    mgr = CheckpointManager(tmp_path / "ck", max_to_keep=2)
+
+    def save(epoch):
+        profiling.set_epoch(epoch)
+        assert mgr.save(epoch, {"m": torch.full((2,), float(epoch))}, {},
+                        extra={"epoch": epoch},
+                        texts={"best_metrics.json": json.dumps(epoch)})
+
+    with profiling.recording(True) as rec:
+        save(0)
+        assert gate.entered.wait(5)
+        second = threading.Thread(target=save, args=(1,))
+        second.start()
+        second.join(0.2)
+        assert second.is_alive()       # the second save waits for write 0
+        assert gate.names == ["epoch_000000.pt.tmp"]
+        gate.release.set()
+        second.join(5)
+        assert not second.is_alive()
+        save(2)
+        assert mgr.epochs() == [1, 2]
+    assert gate.names == [f"epoch_00000{e}.pt.tmp" for e in range(3)]
+    assert json.loads((tmp_path / "ck" / "best_metrics.json").read_text()) \
+        == 2
+    assert mgr.restore()["extra"] == {"epoch": 2}
+    assert rec.counts[(1, "ckpt.write_waits")] == 1
+    assert (0, "ckpt.write_waits") not in rec.counts
+    assert [s.epoch for s in rec.named("ckpt.write")] == [0, 1, 2]
+
+
+@pytest.mark.parametrize("call", ["save", "wait", "close"])
+def test_a_write_error_is_raised_by_the_next_call(tmp_path, monkeypatch,
+                                                  one_thread, call):
+    Gate(monkeypatch, fail=1)
+    mgr = CheckpointManager(tmp_path / "ck")
+    for epoch in (0, 1):    # save 1 hands its state over and returns
+        assert mgr.save(epoch, {"m": torch.ones(2)}, {}, force=True)
+    with pytest.raises(OSError, match="disk full"):
+        if call == "save":
+            mgr.save(2, {"m": torch.ones(2)}, {}, force=True)
+        else:
+            getattr(mgr, call)()
+    assert _files(tmp_path / "ck") == ["epoch_000000.pt"]
+    mgr.wait()              # raised once
+    assert mgr.epochs() == [0]
+
+
+def test_an_exception_in_train_leaves_the_held_file_whole(tmp_path,
+                                                         monkeypatch,
+                                                         one_thread):
+    gate = Gate(monkeypatch, held={1}, after=0.05)
+    ck = tmp_path / "checkpoints"
+
+    class Failing(MetricsTracker):
+        def log(self, metrics, step=None):
+            if step == 2:
+                # epoch 1's write is held: let it go and raise at once
+                assert gate.entered.is_set()
+                assert _files(ck) == ["epoch_000000.pt"]
+                gate.release.set()
+                raise RuntimeError("stop")
+            super().log(metrics, step)
+
+    cfg = _config(tmp_path, 3, vis=0)
+    eng = build_trainer(cfg["training"], "cpu", cfg)
+    nets = {n: build_model(mc, n_pairs=T_MYO - 1)
+            for n, mc in cfg["networks"].items()}
+    with pytest.raises(RuntimeError, match="stop"):
+        eng.train(nets, _datasets(), cfg["training"], cfg,
+                  tracker=Failing(quiet=True))
+    assert _files(ck) == ["epoch_000000.pt", "epoch_000001.pt"]
+    state = CheckpointManager(ck).restore(
+        template={"params": eng._snapshot()})
+    assert state["extra"]["epoch"] == 1
+    assert json.loads((ck / "best_metrics.json").read_text())

@@ -541,8 +541,8 @@ def test_host_recorder_counts_graphs_and_checkpoint_bytes(cuda, tmp_path):
         tmp_path / "checkpoints" / "epoch_000002.pt")
     assert 0 < state < total
     assert all(r["ckpt.bytes_to_host"] == state for r in rows)
-    assert all(0 < r["ckpt.to_host"] + r["ckpt.write"] <= r["ckpt"]
-               for r in rows)
+    assert all(0 < r["ckpt.to_host"] + r["ckpt.wait"] <= r["ckpt"]
+               and r["ckpt.write"] > 0 for r in rows)
     eng.test(exp, {"test": datasets["val"]},
              trainer_config=cfg["training"])
     rec = profiling.RECORDER

@@ -388,6 +388,12 @@ BY_DESIGN = {
         "the port takes mesh and keeps device: JAX ignores device, the "
         "port places the engine there (None: the mesh's device or the "
         "card)"),
+    "CheckpointManager.save": (
+        set(), {"texts"},
+        "keyword-only: text files that the port's writer thread writes "
+        "after the epoch's file, so that best_metrics.json and the file a "
+        "resume reads come from one save; JAX's engine writes "
+        "best_metrics.json itself while orbax's save runs"),
     "parallel.mesh.get_mesh": (
         set(), set(),
         "devices holds one device a rank, in rank order (JAX's is a list "
