@@ -13,6 +13,7 @@ and the fused epoch's value buffer holds each step's loss.
 
 from __future__ import annotations
 
+import gc
 import math
 import shutil
 import tempfile
@@ -186,8 +187,10 @@ def run(workload: str, cfg: Dict[str, Any], traffic: Dict[str, Any],
                       hook.first_moments.items()},
             "after": hook.params}
     window = tracker.window
-    # the program's state goes before the reference runs
-    del trainer, networks, datasets
+    # the program's state goes before the reference runs: the hook and the
+    # engine hold each other, a cycle that only the collector frees
+    del trainer, networks, datasets, hook
+    gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     written = sorted((save_dir / "checkpoints").glob("*"))
@@ -239,27 +242,27 @@ def batches_for(kind: str, pc, slices, steps: int, device):
     """The first ``steps`` batches of epoch 0, worked out by the reference
     from the raw data: the train split (every subject but the held-out
     ones, in data order), the shuffle of (training seed, 0), batches of
-    ``batch_size``."""
+    ``batch_size``. Only the rows of these batches are built."""
     from reference import train as ref
     held = [p.replace(".*", "") for s in ("val", "test")
             for p in pc["data_split"]["splits"][s]["patterns"]]
     bs = int(pc["training"]["batch_size"])
     train = [s for s in slices if s["subject_id"] not in held]
+    items = train if kind == "joint" else ref.reg_pairs(train)
+    order = ref.epoch_order(int(pc["training"]["seed"]), 0, len(items))
+    picked = [items[i] for i in order[:steps * bs]]
     if kind == "joint":
-        raw = ref.joint_inputs(
-            train, int(pc["datasets"]["train"]["n_myo_frames_to_use_for_regression"]),
-            int(pc["datasets"]["train"]["n_strainmat_frames_to_use_for_regression"]))
-        fields = {"cine": raw["cine"], "strain": raw["strain"],
-                  "TOS": raw["TOS"]}
+        ds = pc["datasets"]["train"]
+        fields = ref.joint_inputs(
+            picked, int(ds["n_myo_frames_to_use_for_regression"]),
+            int(ds["n_strainmat_frames_to_use_for_regression"]))
     else:
-        fields = ref.reg_inputs(train)
-    n = next(iter(fields.values())).shape[0]
-    order = ref.epoch_order(int(pc["training"]["seed"]), 0, n)
+        fields = ref.reg_inputs(train, picked)
     out = []
     for k in range(steps):
-        idx = order[k * bs:(k + 1) * bs]
-        b = {f: torch.from_numpy(v[idx]).to(device) for f, v in fields.items()}
-        b["mask"] = torch.ones(len(idx), device=device)
+        b = {f: torch.from_numpy(v[k * bs:(k + 1) * bs]).to(device)
+             for f, v in fields.items()}
+        b["mask"] = torch.ones(next(iter(b.values())).shape[0], device=device)
         out.append(b)
     return out
 

@@ -1,11 +1,25 @@
 """Plain PyTorch operators of the cardiac registration path.
 
-The benchmark's own reference: the fluid metric v = K m as real-DFT
-matmuls, the band-limited spectral resize, the clamped bilinear warp, one
-EPDiff Euler step, geodesic shooting and the rank-k subspace smoothing of a
-strain matrix. Every function is a forward in plain tensor operations;
-gradients come from autograd, so no hand-written adjoint is trusted here.
-Nothing of the program under test is imported.
+The benchmark's own reference: the fluid metric v = K m, the band-limited
+spectral resize, the clamped bilinear warp, one EPDiff Euler step,
+geodesic shooting and the rank-k subspace smoothing of a strain matrix.
+Every function is a forward in plain tensor operations; gradients come
+from autograd, so no hand-written adjoint is trusted here. Nothing of the
+program under test is imported.
+
+The metric and the resize run as real-DFT matmuls where every side is at
+most ``DENSE_MAX_SIDE`` (128) px, and through ``torch.fft.rfft2`` /
+``irfft2`` (the same spectrum, the same band rule) above it. At 768x512
+frames (a 384x256 shooting grid) the dense form would add 3.33 TFLOP of
+matmuls to a batch-10 step that counts 4.39 TFLOP without them, and
+``tools/count_flops.py`` (``FlopCounterMode``) would count them as model
+work that the program, which takes ``rfft2`` there too, does not do.
+``FlopCounterMode`` has no formula for an FFT, so the FFT form counts
+nothing; its true cost, about 2.5 N log2 N FLOPs a real transform of N
+points, is about 52 GFLOP in that step's forward and as much in its
+backward: about 2.4% of the step, left out of the count. ``_sharp_dense``
+and ``_resize_dense`` keep the dense form callable at any side, so that a
+test can hold the two forms against each other.
 
 ``Numerics`` is the precision the reference computes in. ``Numerics()``
 is float32 where the configuration states float32 (TF32 off, set by the
@@ -38,6 +52,9 @@ class Numerics:
 
 
 EXACT = Numerics()
+
+# the largest side the metric and the resize take as dense matmuls
+DENSE_MAX_SIDE = 128
 
 
 # ---- fluid metric -------------------------------------------------------- #
@@ -76,16 +93,51 @@ def _on(x: torch.Tensor, arr: np.ndarray) -> torch.Tensor:
 
 def sharp(m: torch.Tensor, alpha: float, gamma: float, power: int,
           num: Numerics = EXACT) -> torch.Tensor:
-    """v = K m on (..., H, W), sides up to 128: Ty^T [(Ty m Tx^T) W] Tx."""
+    """v = K m on (..., H, W): dense up to ``DENSE_MAX_SIDE``, else FFT."""
     h, w = m.shape[-2:]
-    if max(h, w) > 128:
-        raise ValueError("the reference's metric covers sides up to 128 px")
+    if max(h, w) <= DENSE_MAX_SIDE:
+        return _sharp_dense(m, alpha, gamma, power, num)
+    return _sharp_fft(m, alpha, gamma, power, num)
+
+
+def _sharp_dense(m: torch.Tensor, alpha: float, gamma: float, power: int,
+                 num: Numerics = EXACT) -> torch.Tensor:
+    """v = K m as matmuls, any side: Ty^T [(Ty m Tx^T) W] Tx."""
+    h, w = m.shape[-2:]
     ty, tx, wgt = (_on(m, a) for a in _metric_operands(h, w, float(alpha),
                                                         float(gamma),
                                                         int(power)))
     ty, tx, wgt = num(ty), num(tx), num(wgt)
     xh = num(num(ty @ m.float()) @ tx.T)
     return num(num(ty.T @ num(xh * wgt)) @ tx)
+
+
+@functools.lru_cache(maxsize=None)
+def _metric_rfft_weights(h: int, w: int, alpha: float, gamma: float,
+                         power: int) -> np.ndarray:
+    """1 / spectrum of K on the rfft2 grid (H, W // 2 + 1): the same
+    5-point Laplacian eigenvalues as ``_metric_operands``."""
+    fy, fx = np.arange(h), np.arange(w // 2 + 1)
+    lam = (2.0 - 2.0 * np.cos(2 * np.pi * fy / h))[:, None] \
+        + (2.0 - 2.0 * np.cos(2 * np.pi * fx / w))[None, :]
+    return (1.0 / (gamma + alpha * lam) ** power).astype(np.float32)
+
+
+def _num_c(num: Numerics, z: torch.Tensor) -> torch.Tensor:
+    """``num`` on the real and imaginary parts of a complex tensor."""
+    if not num.lowp:
+        return z
+    return torch.view_as_complex(num(torch.view_as_real(z)).contiguous())
+
+
+def _sharp_fft(m: torch.Tensor, alpha: float, gamma: float, power: int,
+               num: Numerics = EXACT) -> torch.Tensor:
+    """v = K m as irfft2(rfft2(m) / spectrum)."""
+    h, w = m.shape[-2:]
+    wgt = num(_on(m, _metric_rfft_weights(h, w, float(alpha), float(gamma),
+                                          int(power))))
+    xh = _num_c(num, torch.fft.rfft2(m.float()))
+    return num(torch.fft.irfft2(_num_c(num, xh * wgt), s=(h, w)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,14 +168,53 @@ def band_resize_matrix(n1: int, n2: int) -> np.ndarray:
 
 def spectral_resize(x: torch.Tensor, out_hw, num: Numerics = EXACT
                     ) -> torch.Tensor:
-    """Band-limited resampling of (..., H, W) to ``out_hw``: Ry x Rx^T."""
+    """Band-limited resampling of (..., H, W) to ``out_hw``: dense up to
+    ``DENSE_MAX_SIDE`` on every side, else FFT."""
+    h, w = x.shape[-2:]
+    if max(h, w, *out_hw) <= DENSE_MAX_SIDE:
+        return _resize_dense(x, out_hw, num)
+    return _resize_fft(x, out_hw, num)
+
+
+def _resize_dense(x: torch.Tensor, out_hw, num: Numerics = EXACT
+                  ) -> torch.Tensor:
+    """The resize as matmuls, any side: Ry x Rx^T."""
     h, w = x.shape[-2:]
     h2, w2 = out_hw
-    if max(h, w, h2, w2) > 128:
-        raise ValueError("the reference's resize covers sides up to 128 px")
     ry = num(_on(x, band_resize_matrix(h, h2)))
     rx = num(_on(x, band_resize_matrix(w, w2)))
     return num(num(ry @ x.float()) @ rx.T)
+
+
+def _band_axis(x: torch.Tensor, n2: int, dim: int) -> torch.Tensor:
+    """``band_resize_matrix``'s rule along ``dim`` in the Fourier domain:
+    the first min(n1, n2) // 2 = k frequencies copy (their negative
+    partners follow by symmetry); at k an odd smaller grid copies too, an
+    even smaller output keeps the real part (the two Nyquist halves
+    folded), an even smaller input splits its real Nyquist in halves."""
+    n1 = x.shape[dim]
+    if n1 == n2:
+        return x
+    f = torch.fft.rfft(x, dim=dim)
+    k = min(n1, n2) // 2
+    if min(n1, n2) % 2:
+        g = f.narrow(dim, 0, k + 1)
+    else:
+        edge = f.narrow(dim, k, 1).real * (1.0 if n2 < n1 else 0.5)
+        g = torch.cat([f.narrow(dim, 0, k),
+                       torch.complex(edge, torch.zeros_like(edge))], dim=dim)
+    pad = list(g.shape)
+    pad[dim] = n2 // 2 + 1 - g.shape[dim]
+    g = torch.cat([g, g.new_zeros(pad)], dim=dim)
+    return torch.fft.irfft(g, n=n2, dim=dim) * (n2 / n1)
+
+
+def _resize_fft(x: torch.Tensor, out_hw, num: Numerics = EXACT
+                ) -> torch.Tensor:
+    """The resize along H, then along W, each through rfft / irfft."""
+    h2, w2 = out_hw
+    y = num(_band_axis(x.float(), int(h2), -2))
+    return num(_band_axis(y, int(w2), -1))
 
 
 # ---- the clamped bilinear warp --------------------------------------------- #

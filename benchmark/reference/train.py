@@ -41,17 +41,26 @@ def joint_inputs(slices: Sequence[Dict], n_frames: int, n_strain: int
     return {"cine": cine, "strain": strain, "TOS": tos}
 
 
-def reg_inputs(slices: Sequence[Dict]) -> Dict[str, np.ndarray]:
-    """Frame 0 against each later frame with a non-empty mask, slice by
-    slice: src, tar (N, 1, H, W) float32."""
-    src, tar = [], []
-    for s in slices:
+def reg_pairs(slices: Sequence[Dict]) -> List[Tuple[int, int]]:
+    """(slice, frame) of frame 0 against each later frame with a non-empty
+    mask, slice by slice: the pairs in data order."""
+    out = []
+    for i, s in enumerate(slices):
         masks = np.asarray(s["cine_lv_myo_masks"], np.float32)
-        for f in range(1, masks.shape[-1]):
-            if masks[:, :, f].sum() == 0:
-                continue
-            src.append(masks[None, :, :, 0])
-            tar.append(masks[None, :, :, f])
+        out += [(i, f) for f in range(1, masks.shape[-1])
+                if masks[:, :, f].sum() != 0]
+    return out
+
+
+def reg_inputs(slices: Sequence[Dict], pairs=None) -> Dict[str, np.ndarray]:
+    """src, tar (N, 1, H, W) float32 of ``pairs`` (default: every pair of
+    ``reg_pairs``), in their order."""
+    pairs = reg_pairs(slices) if pairs is None else pairs
+    src, tar = [], []
+    for i, f in pairs:
+        masks = np.asarray(slices[i]["cine_lv_myo_masks"], np.float32)
+        src.append(masks[None, :, :, 0])
+        tar.append(masks[None, :, :, f])
     return {"src": np.stack(src), "tar": np.stack(tar)}
 
 

@@ -120,3 +120,18 @@ def test_configs_are_the_programs_but_for_reduced_keys():
         reduced = set(cfg["bench"]["reduced"])
         assert all(c in reduced or c.split(".")[0] in reduced
                    for c in changed), changed
+
+
+def test_flops_at_the_cells_traffic_or_a_named_one(capsys):
+    mod = _count_flops()
+    assert mod.cell_traffic("joint") == mod.cell_traffic("reg") == \
+        "train-epochs"
+    with pytest.raises(KeyError):
+        mod.cell_traffic("no-such-config")
+    mod.main(["--traffic", "train-epochs", "reg"])
+    assert json.loads(capsys.readouterr().out) == \
+        {"reg": common.config("reg")["bench"]["flops_per_step"]}
+    # a traffic's training block sets the batch the step is counted at
+    tr = dict(common.traffic("train-epochs"), training={"batch_size": 5})
+    assert 2 * mod.flops_of(common.config("reg"), tr) == \
+        common.config("reg")["bench"]["flops_per_step"]

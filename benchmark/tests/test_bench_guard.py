@@ -80,7 +80,11 @@ def test_result_line_schema():
               "peak": 123, "setup_s": 11.5, "train_samples_per_s": 444.5,
               "run": {"kind": "train", "config": common.config("joint"),
                       "trace": trace, "window_s": 2.0, "steps": 100,
-                      "host_rows": [{"ckpt": 0.06}],
+                      "host_rows": [{"ckpt": 0.018, "ckpt.to_host": 0.013,
+                                     "ckpt.write": 0.049,
+                                     "ckpt.bytes_to_host": 9440400,
+                                     "dispatch": 0.12,
+                                     "dispatch.steps": 17}],
                       "kernel_rows": common.kernel_rows()}}
     card = {"kind": "NVIDIA H100 80GB HBM3", "count": 1}
     checks = [{"name": "loss_gap", "value": 1e-3, "limit": 2e-2, "ok": True}]
