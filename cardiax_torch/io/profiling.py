@@ -55,7 +55,7 @@ STEP_SPAN = "train_step"
 # ``TrainerEngine.host_profile_rows`` carries (0 where the work did not run)
 ROW_SPANS = ("ckpt.wait", "ckpt.to_host", "ckpt.write")
 ROW_COUNTERS = ("ckpt.bytes_to_host", "ckpt.write_waits", "dispatch.steps",
-                "dispatch.captures")
+                "dispatch.captures", "fft.calls")
 
 
 class Span(NamedTuple):

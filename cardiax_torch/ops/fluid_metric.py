@@ -5,7 +5,8 @@ Counterpart of ``cardiax/ops/fluid_metric.py``: ``helmholtz_spectrum``,
 ``_band_resize_matrix``, ``spectral_resize``, ``solve_mm_operands`` and
 ``FluidMetric``. The spectrum is that of the discrete 5-point Laplacian.
 Sides up to ``_MM_MAX_SIDE`` run as real-DFT matmuls (float32, no TF32:
-``cardiax_torch.device.set_numerics``), larger ones through ``rfft2``.
+``cardiax_torch.device.set_numerics``), larger ones through ``rfft2``; each
+call of an ``rfft2`` branch adds one to its count in ``ops.counters``.
 ``solve_mm_operands`` hands the same matmul operands to the fused-solve
 EPDiff kernel (K6/K7), which runs the four products in its own body. The
 lane-packed TPU variants (``sharp_packed`` and the block-diagonal bases of
@@ -20,6 +21,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from cardiax_torch.ops import counters
 
 _MM_MAX_SIDE = 128
 
@@ -129,6 +132,7 @@ def sharp(momentum: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
     h, w = momentum.shape[-2:]
     if max(h, w) <= _MM_MAX_SIDE:
         return _helmholtz_mm(momentum, alpha, gamma, power, inverse=True)
+    counters.count("fft_sharp")
     spec = helmholtz_spectrum(h, w, alpha, gamma, power, momentum.device)
     f = torch.fft.rfft2(momentum.float())
     return torch.fft.irfft2(f / spec, s=(h, w))
@@ -140,6 +144,7 @@ def flat(velocity: torch.Tensor, alpha: float = 2.0, gamma: float = 1.0,
     h, w = velocity.shape[-2:]
     if max(h, w) <= _MM_MAX_SIDE:
         return _helmholtz_mm(velocity, alpha, gamma, power, inverse=False)
+    counters.count("fft_flat")
     spec = helmholtz_spectrum(h, w, alpha, gamma, power, velocity.device)
     f = torch.fft.rfft2(velocity.float())
     return torch.fft.irfft2(f * spec, s=(h, w))
@@ -227,6 +232,7 @@ def spectral_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
         rx = _const(x.device, ("resize", w, w2),
                     lambda: _band_resize_matrix(w, w2))
         return ry @ x.float() @ rx.T
+    counters.count("fft_resize")
     f = torch.fft.rfft2(x.float())
     out = _band_axis(f, h, h2)
     # cols: rfft half-spectrum axis; the negative-sign partner of a stored

@@ -523,9 +523,11 @@ class TrainerEngine:
         (bytes of device tensors copied to the CPU), ``ckpt.write_waits``
         (saves that found the previous write unfinished),
         ``dispatch.steps`` (``StepGraph`` calls: the fused epoch's
-        train and val steps) and ``dispatch.captures`` (CUDA graphs
-        captured). Under ``epoch_pipeline`` each row holds its own epoch's
-        work, though epoch k's ``sync`` runs after epoch k+1's dispatch.
+        train and val steps), ``dispatch.captures`` (CUDA graphs
+        captured) and ``fft.calls`` (forward calls of the fluid metric's
+        and the resize's FFT branches in those steps). Under
+        ``epoch_pipeline`` each row holds its own epoch's work, though
+        epoch k's ``sync`` runs after epoch k+1's dispatch.
         """
         cfg = trainer_config or self.trainer_config
         with profiling.recording(bool(cfg.get("host_profile", False))), \

@@ -35,7 +35,9 @@ what the device ran.
 the capture are spans of the host recorder (``io.profiling``:
 ``graph.warmup``, ``graph.capture``), and ``EpochRunner`` hands each
 epoch's increase of the calls and captures to the recorder
-(``dispatch.steps``, ``dispatch.captures``). A replay opens no span.
+(``dispatch.steps``, ``dispatch.captures``), and that of the FFT branches'
+calls (``ops.counters.FFT_BRANCHES``, replays included) as one counter,
+``fft.calls``. A replay opens no span.
 
 JAX's ``epoch_fuse_max_steps`` caps how far its scan unrolls; a captured
 step has no counterpart, so the key has no effect here.
@@ -168,13 +170,20 @@ class EpochRunner:
         _upload(self.mask, mask_mat)
         self.row.zero_()
         calls, captures = self.graph.calls, self.graph.captures
+        ffts = _fft_calls()
         for _ in range(idx_mat.shape[0]):
             self.graph()
             if self.after_step is not None:
                 self.after_step()
         profiling.add("dispatch.steps", self.graph.calls - calls)
         profiling.add("dispatch.captures", self.graph.captures - captures)
+        profiling.add("fft.calls", _fft_calls() - ffts)
         return self.out
+
+
+def _fft_calls() -> int:
+    """The FFT branches' calls so far, summed over the branches."""
+    return sum(counters.launches[k] for k in counters.FFT_BRANCHES)
 
 
 def _upload(dst: torch.Tensor, src: np.ndarray) -> None:

@@ -20,7 +20,7 @@
   and the same initial weights, within the tolerance
   ``tests/test_epoch_fuse.py::_assert_same`` holds JAX's own fused run to
   against its loop (1e-4 at epoch 0, 5e-3 after), and the
-  ``host_profile_rows`` keys of the two (the port's seven dotted keys
+  ``host_profile_rows`` keys of the two (the port's eight dotted keys
   aside);
 * ``summarize_trace`` on a synthetic ``torch.profiler`` Chrome trace, a
   host-only trace and a missing directory (after
@@ -469,7 +469,7 @@ def test_auto_run_matches_jax_auto_run():
     initial weights (JAX's, drawn by its ``setup``, carried over): the
     per-epoch metrics within ``_assert_same``'s tolerance (1e-4 relative
     and absolute at epoch 0, 5e-3 after), the same engagement, the same
-    ``host_profile_rows`` keys (the port's seven dotted keys aside)."""
+    ``host_profile_rows`` keys (the port's eight dotted keys aside)."""
     cfg = _lma_cfg(epochs=3, host_profile=True)
     mesh = get_mesh((1,), ("data",), devices=jax.devices()[:1])
     jax_ds = jax_build_datasets(_lma_ds_cfg(), _splits())
@@ -500,7 +500,7 @@ def test_auto_run_matches_jax_auto_run():
         np.testing.assert_allclose(hg[k], hw[k], rtol=5e-3, atol=5e-3,
                                    err_msg=k)
     # the port's rows add dotted keys (spans and counters below JAX's
-    # phases); without them they have JAX's keys, and they are the seven
+    # phases); without them they have JAX's keys, and they are the eight
     # documented ones
     assert [sorted(k for k in r if "." not in k)
             for r in eng.host_profile_rows] == \
@@ -508,7 +508,7 @@ def test_auto_run_matches_jax_auto_run():
     assert all({k for k in r if "." in k} == set(ROW_SPANS + ROW_COUNTERS)
                == {"ckpt.wait", "ckpt.to_host", "ckpt.write",
                    "ckpt.bytes_to_host", "ckpt.write_waits",
-                   "dispatch.steps", "dispatch.captures"}
+                   "dispatch.steps", "dispatch.captures", "fft.calls"}
                for r in eng.host_profile_rows)
     assert len(eng.host_profile_rows) == 3
 

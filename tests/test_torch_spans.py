@@ -8,7 +8,7 @@
   interval of a microsecond, each inner span its own thread's child;
 * ``TrainerEngine.train`` at ``test_torch_dispatch``'s 16^2 flagship, with
   checkpoints (fused, not pipelined) and without (pipelined): every row
-  carries the seven dotted keys; the save's wait and copy lie inside
+  carries the eight dotted keys; the save's wait and copy lie inside
   ``ckpt``, the write, on the writer thread, is in every row, its own
   epoch's; ``ckpt.bytes_to_host`` is the saved file's tensor bytes less
   those that were on the CPU already (all of them on the CPU, so 0 here;
