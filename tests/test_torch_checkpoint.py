@@ -39,6 +39,7 @@ from cardiax_torch.io.checkpoints import CheckpointManager
 from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.models import build_model
 from cardiax_torch.train import build_trainer
+from torch_budget import time_limit  # noqa: F401
 
 T_MYO = 4
 
@@ -253,14 +254,6 @@ def test_failing_figure_warns_once(tmp_path, monkeypatch):
 # The writer thread                                                            #
 # --------------------------------------------------------------------------- #
 
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class Gate:
     """``torch.save`` as the checkpoint writer calls it: each call records
     its file's name; the writes of the epochs in ``held`` wait for
@@ -297,8 +290,7 @@ def _files(directory):
     return sorted(p.name for p in directory.glob("epoch_*.pt"))
 
 
-def test_the_file_holds_the_state_as_it_was_at_save(tmp_path, monkeypatch,
-                                                    one_thread):
+def test_the_file_holds_the_state_as_it_was_at_save(tmp_path, monkeypatch):
     gate = Gate(monkeypatch, held={0})
     mgr = CheckpointManager(tmp_path / "ck")
     state = {**_state(), "best_params": _state(3.0)["params"]}
@@ -317,7 +309,7 @@ def test_the_file_holds_the_state_as_it_was_at_save(tmp_path, monkeypatch,
     mgr.close()
 
 
-def test_one_write_in_flight_in_order(tmp_path, monkeypatch, one_thread):
+def test_one_write_in_flight_in_order(tmp_path, monkeypatch):
     gate = Gate(monkeypatch, held={0})
     mgr = CheckpointManager(tmp_path / "ck", max_to_keep=2)
 
@@ -350,8 +342,7 @@ def test_one_write_in_flight_in_order(tmp_path, monkeypatch, one_thread):
 
 
 @pytest.mark.parametrize("call", ["save", "wait", "close"])
-def test_a_write_error_is_raised_by_the_next_call(tmp_path, monkeypatch,
-                                                  one_thread, call):
+def test_a_write_error_is_raised_by_the_next_call(tmp_path, monkeypatch, call):
     Gate(monkeypatch, fail=1)
     mgr = CheckpointManager(tmp_path / "ck")
     for epoch in (0, 1):    # save 1 hands its state over and returns
@@ -367,8 +358,7 @@ def test_a_write_error_is_raised_by_the_next_call(tmp_path, monkeypatch,
 
 
 def test_an_exception_in_train_leaves_the_held_file_whole(tmp_path,
-                                                         monkeypatch,
-                                                         one_thread):
+                                                         monkeypatch):
     gate = Gate(monkeypatch, held={1}, after=0.05)
     ck = tmp_path / "checkpoints"
 

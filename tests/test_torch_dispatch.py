@@ -57,23 +57,11 @@ from cardiax_torch.io.profiling import (ROW_COUNTERS, ROW_SPANS,
 from cardiax_torch.models import build_model
 from cardiax_torch.ops import svd_smooth
 from cardiax_torch.train import build_trainer
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 16
 T = 6
 TS = 12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file: its shapes are small, and a
-    test worker that shares the machine's cores with other workers stalls
-    in the thread pool's barriers (measured: four copies of this file's
-    training tests side by side took 828 s with the default threads, 17 s
-    with one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --------------------------------------------------------------------------- #

@@ -68,6 +68,7 @@ from cardiax_torch.train.schemes.lma import LMAScheme
 from cardiax_torch.train.schemes.reg import RegScheme
 from cardiax_torch.train.schemes.strainmat_lma import StrainMatLMAScheme
 from cardiax_torch.train.schemes.strainmat_pred import StrainMatPredScheme
+from torch_budget import time_limit  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 T = 10
@@ -77,14 +78,6 @@ REG_NET = {"type": "RegistrationNet", "features": 4, "n_levels": 2,
            "n_integration_steps": 3, "alpha": 2.0, "gamma": 1.0,
            "sigma": 0.03, "final_warp_radius": 4}
 EVAL_TOL = 1.9e-2      # the eval step's bf16-trunk tolerance, of the range
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _rel_max(out, ref):

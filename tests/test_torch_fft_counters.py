@@ -23,6 +23,7 @@ from cardiax_torch.io import profiling
 from cardiax_torch.ops import counters
 from cardiax_torch.ops.fluid_metric import flat, sharp, spectral_resize
 from cardiax_torch.train.graphs import EpochRunner, StepGraph
+from torch_budget import time_limit  # noqa: F401
 
 BRANCHES = [("fft_sharp", sharp), ("fft_flat", flat),
             ("fft_resize", lambda x: spectral_resize(x, (x.shape[-2] // 2,

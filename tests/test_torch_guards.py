@@ -26,6 +26,7 @@ from cardiax_torch import device as tdevice
 from cardiax_torch import main as port_main
 from cardiax_torch.kernels import build
 from cardiax_torch.ops import epdiff_kernels, warp_kernels
+from torch_budget import time_limit  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cardiax", "msgpack"}

@@ -25,6 +25,7 @@ from cardiax_torch.device import deterministic
 from cardiax_torch.ops import (counters, epdiff_kernels, shooting,
                                warp_kernels)
 from cardiax_torch.ops.fluid_metric import _helmholtz_mm_weights
+from torch_budget import time_limit  # noqa: F401
 
 LAUNCHES = counters.launches     # by kernel name
 

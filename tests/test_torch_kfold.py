@@ -32,16 +32,9 @@ import cardiax_torch.losses.metrics as tmetrics
 import cardiax_torch.sweep as tsweep
 from cardiax_torch.data import load_data
 from cardiax_torch.data.synthetic import make_dataset, save_npy
+from torch_budget import time_limit  # noqa: F401
 
 T = 10
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _lma_config(npy, epochs=1):

@@ -23,6 +23,7 @@ from cardiax_torch.ops import fluid_metric as tfm
 from cardiax_torch.train import build_trainer
 from test_torch_train import (T_MYO, _config, _data_cfg, _jax_trainer,
                               _np_tree, _rel_l2)
+from torch_budget import time_limit  # noqa: F401
 
 
 def test_rectangular_train_step_matches_jax_on_the_fft_branches(monkeypatch):

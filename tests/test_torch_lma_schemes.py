@@ -65,6 +65,7 @@ from cardiax_torch.models.lma_net import NetDisplacement2LMA, NetStrainMat2LMA
 from cardiax_torch.models.strain_net import NetDisplacement2StrainMat
 from cardiax_torch.train import build_trainer
 from cardiax_torch.train.engine import Scheme
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 16
 T = 6

@@ -35,6 +35,7 @@ from cardiax_torch.models.lma_net import NetStrainMat2LMA
 from cardiax_torch.models.strain_net import ResNet3DStrainHead
 from cardiax_torch.models.unet import MomentumUNet
 from cardiax_torch.train import build_trainer
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 32
 T_MYO, T_STRAIN = 4, 40

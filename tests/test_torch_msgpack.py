@@ -42,6 +42,7 @@ from cardiax_torch.data.synthetic import make_dataset, save_npy
 from cardiax_torch.io.convert import params_from_flax
 from cardiax_torch.io.export import load_model_params
 from cardiax_torch.io.msgpack import msgpack_restore
+from torch_budget import time_limit  # noqa: F401
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "joint.json"
 H = W = 32

@@ -34,6 +34,7 @@ from cardiax_torch.ops import epdiff_kernels as tek
 from cardiax_torch.ops import warp_kernels as twk
 from cardiax_torch.ops.epdiff_kernels import epdiff_step
 from cardiax_torch.ops.warp_kernels import bilinear_warp_banded_multi
+from torch_budget import time_limit  # noqa: F401
 
 
 def _smooth(rng, shape, sigma, scale):

@@ -61,6 +61,7 @@ from cardiax_torch.parallel import distributed as tdist
 from cardiax_torch.parallel import get_mesh
 from cardiax_torch.parallel.mesh import Mesh
 from cardiax_torch.train import build_trainer
+from torch_budget import time_limit  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = REPO / "tests" / "torch_dp_worker.py"

@@ -29,6 +29,7 @@ import cardiax_torch.plot.strainmat as tstrainmat
 import cardiax_torch.plot.tos_surface as ttos
 import cardiax_torch.utils as tutils
 import cardiax_torch.utils.dense as tdense
+from torch_budget import time_limit  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

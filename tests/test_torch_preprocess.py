@@ -25,6 +25,7 @@ import cardiax_torch.data.datareader as treader
 import cardiax_torch.native.lib as tnative
 from cardiax_torch.data.synthetic import (add_displacement_fields,
                                           make_dataset, save_npy)
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 20
 T = 6

@@ -50,6 +50,7 @@ from cardiax_torch.data.synthetic import (add_displacement_fields,
 from cardiax_torch.io.convert import params_from_flax
 from cardiax_torch.models import build_model
 from cardiax_torch.train import build_trainer
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 32
 T = 4

@@ -41,6 +41,7 @@ from test_torch_lma_schemes import (H, W, _slices, assert_batches_equal,
                                     assert_grads_match, assert_values_match,
                                     check_main_run, jax_step, main_run_config,
                                     port_engine)
+from torch_budget import time_limit  # noqa: F401
 
 REG = {"type": "RegistrationNet", "features": 4, "n_levels": 2,
        "n_integration_steps": 3, "alpha": 2.0, "gamma": 1.0, "sigma": 0.03,

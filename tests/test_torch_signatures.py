@@ -115,6 +115,7 @@ from cardiax.train.schemes.joint_reg_strainmat_lma import \
     JointRegisterStrainmatLMAScheme as JaxJointScheme
 from cardiax_torch.train.schemes.joint_reg_strainmat_lma import \
     JointRegisterStrainmatLMAScheme
+from torch_budget import time_limit  # noqa: F401
 
 # the schemes' classes, port and JAX, by name
 SCHEMES = {"Scheme": (tengine.Scheme, jengine.Scheme),

@@ -29,6 +29,7 @@ import cardiax_torch.ops as tops
 from cardiax_torch.ops import epdiff_kernels as tek
 from cardiax_torch.ops import fluid_metric as tfm
 from cardiax_torch.ops import shooting as tsh
+from torch_budget import time_limit  # noqa: F401
 
 METRIC = (0.5, 1.0, 2)      # the flagship's metric on its 64^2 grid
 

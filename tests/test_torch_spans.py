@@ -20,7 +20,7 @@
   on another) and none of a phase;
 * ``host_profile`` off: nothing recorded, no rows.
 
-One intra-op thread (``test_torch_dispatch._one_thread``); about 10 s.
+About 10 s.
 """
 
 import sys
@@ -31,8 +31,9 @@ import torch
 
 from cardiax_torch.io import profiling
 from cardiax_torch.io.profiling import ROW_COUNTERS, ROW_SPANS
-from test_torch_dispatch import _cfg, _one_thread, _port_run  # noqa: F401
+from test_torch_dispatch import _cfg, _port_run
 from test_torch_kernels import saved_tensor_bytes
+from torch_budget import time_limit  # noqa: F401
 
 PHASES = ("plan", "dispatch", "sync", "val", "track", "beststop", "ckpt")
 DOTTED = ROW_SPANS + ROW_COUNTERS

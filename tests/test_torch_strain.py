@@ -25,6 +25,7 @@ from cardiax.models import build_model as jax_build_model
 from cardiax_torch.data.synthetic import make_dataset
 from cardiax_torch.io.convert import params_from_flax
 from cardiax_torch.models import build_model, init_weights
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 24
 T = 5

@@ -51,6 +51,7 @@ from cardiax_torch.io.metrics import MetricsTracker
 from cardiax_torch.models import build_model, init_weights
 from cardiax_torch.train import build_trainer
 from cardiax_torch.train.optim import build_optimizer
+from torch_budget import time_limit  # noqa: F401
 
 H = W = 32
 T_MYO, T_STRAIN = 4, 40

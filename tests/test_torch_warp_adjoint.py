@@ -24,6 +24,7 @@ import cardiax.ops.warp_pallas as wp
 from cardiax_torch.ops import warp_kernels as twk
 from cardiax_torch.ops.warp import sample_coords
 from test_torch_kernels import K5_CASES, k5_case
+from torch_budget import time_limit  # noqa: F401
 
 
 def _scatter_adjoint(field, disp, g, radius):

@@ -32,6 +32,7 @@ from cardiax_torch.ops import epdiff_kernels as tek
 from cardiax_torch.ops import shooting as tshooting
 from cardiax_torch.ops import warp as twarp
 from cardiax_torch.ops import warp_kernels as twk
+from torch_budget import time_limit  # noqa: F401
 
 
 def _t(a):
