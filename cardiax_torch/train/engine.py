@@ -22,6 +22,14 @@ contract and the TOS metrics) and ``TrainerEngine``:
 * ``eval_step`` / ``test``: values and per-sample predictions
   (``training.eval_pipeline``).
 
+``train`` decides once what runs (``_dispatch``, a ``_Dispatch``), takes
+its epochs from one generator a path (``_fused_epochs``, which keeps one
+epoch in flight under pipelining; ``_loop_epochs``, the step loop with its
+spot checks and profiler window) and finishes each epoch in one method
+(``_finish_epoch``). A ``_Run`` holds the call's settings, its best
+parameters and early-stop state, and the checkpoint's ``extra`` they are
+saved in and resumed from.
+
 ``train`` also takes a checkpoint of the whole training state after each
 epoch's early-stop update (``saving.save_checkpoint``, ``io.checkpoints``;
 the file is written on the manager's writer thread while the next epoch
@@ -60,8 +68,9 @@ import contextlib
 import json
 import time
 import warnings
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -400,19 +409,6 @@ class TrainerEngine:
                     loader, self._update, after_step=self._schedules_step)
         return self._runners[key]
 
-    def _build_epoch_trainval_fn(self, train_loader, val_loader):
-        """Train epoch then val epoch in one pass, ``(idx, mask, vidx,
-        vmask) -> [(values, keys), (val values, keys)]``: the val steps
-        read the epoch's final parameters, and the caller reads both in one
-        copy (JAX's combined train+val program)."""
-        train_fn = self._build_epoch_fns(train_loader)
-        val_fn = self._build_epoch_fns(val_loader, for_eval=True)
-
-        def epoch_train_val(idx_mat, mask_mat, vidx_mat, vmask_mat):
-            return [(train_fn(idx_mat, mask_mat), train_fn.keys),
-                    (val_fn(vidx_mat, vmask_mat), val_fn.keys)]
-        return epoch_train_val
-
     def _maybe_device_cache(self, loader, cfg: Dict[str, Any], tag: str):
         """A plain padded ``Batcher`` swapped for a ``DeviceBatcher`` (the
         stacked dataset on the engine's device, batches gathered there by
@@ -541,29 +537,8 @@ class TrainerEngine:
         full = full_config or self.full_config
         others = full.get("others", {}) or {}
         saving = full.get("saving", {}) or {}
-        epochs = int(cfg.get("epochs", 1))
-        batch_size = int(cfg.get("batch_size", 10))
         seed = int(cfg.get("seed", 2434))
-        tolerance = int(cfg.get("epochs_without_improvement_tolerance", 50))
-        test_as_val = bool(cfg.get("test_as_val", False))
-        early_stop_metric = cfg.get("early_stop_metric")
-        valid_period = max(1, int(others.get("valid_period", 1)))
-        spot_every = int(cfg.get("metric_spot_check_steps", 50))
-        log_wall = bool(cfg.get("log_epoch_walltime", False))
-
-        train_ds = datasets["train"]
-        if len(train_ds) == 0:
-            raise ValueError("train dataset is empty — check split patterns "
-                             "against the data's subject ids")
-        val_name = "test" if test_as_val and "test" in datasets else "val"
-        val_ds = datasets.get(val_name)
-        train_loader = self.scheme.make_loader(train_ds, batch_size,
-                                               shuffle=True, seed=seed)
-        val_loader = self.scheme.make_loader(val_ds, batch_size, shuffle=False) \
-            if val_ds is not None and len(val_ds) > 0 else None
-        train_loader = self._maybe_device_cache(train_loader, cfg, "train")
-        if val_loader is not None:
-            val_loader = self._maybe_device_cache(val_loader, cfg, "val")
+        train_loader, val_loader = self._loaders(datasets, cfg, seed)
         if tracker is None:
             # rank 0 alone writes the metrics and prints them
             tracker = MetricsTracker(
@@ -574,67 +549,106 @@ class TrainerEngine:
                 quiet=not self._writes)
         self.setup(models, None, len(train_loader), seed=seed)
         self._runners = {}
-
-        best_val = float("inf")
-        best_state = self._snapshot()
-        best_epoch = -1
-        best_epoch_metrics: Dict[str, float] = {}
-        epochs_without_improvement = 0
+        run = _Run(cfg, full, self.metric_prefix, train_loader, val_loader,
+                   tracker, self._snapshot(), self.device)
         # checkpoints of the whole training state; resume restores all of it
         # (before any graph is captured), so a resumed run is step for step
         # the uninterrupted run (the shuffle is a pure function of (seed,
         # epoch))
-        ckpt = None
-        start_epoch = 0
-        best_metrics_path = None
         if saving.get("save_checkpoint") and saving.get("saving_dir"):
-            ckpt = CheckpointManager(
+            run.ckpt = CheckpointManager(
                 Path(saving["saving_dir"]) / "checkpoints",
                 max_to_keep=int(saving.get("save_model_num", 3)),
                 save_interval_epochs=int(saving.get("checkpoint_interval", 1)))
             # every exit, an exception's too, waits for the write in flight
-            on_exit.callback(ckpt.close)
-            best_metrics_path = ckpt.directory / "best_metrics.json"
-            if cfg.get("resume", False) and ckpt.latest_epoch() is not None:
-                state = ckpt.restore(template={"params": self._snapshot(),
-                                               "best_params": best_state})
-                self._load_training_state(state)
-                best_state = state["best_params"]
-                extra = state["extra"]
-                best_val = float(extra["best_val"])
-                best_epoch = int(extra["best_epoch"])
-                epochs_without_improvement = int(
-                    extra["epochs_without_improvement"])
-                start_epoch = int(extra["epoch"]) + 1
-                if best_metrics_path.exists():
-                    best_epoch_metrics = json.loads(
-                        best_metrics_path.read_text())
-        # periodic figures every max(1, int(interval * epochs)) epochs
-        vis_interval = others.get("wandb_visualize_interval", 0)
-        vis_every = max(1, int(float(vis_interval) * epochs)) \
-            if vis_interval and saving.get("saving_dir") else 0
-        # the profiler window: steps 2..profile_steps + 1 of the step loop
+            on_exit.callback(run.ckpt.close)
+            if cfg.get("resume", False) \
+                    and run.ckpt.latest_epoch() is not None:
+                run.resume(self._snapshot(), self._load_training_state)
         profile_dir = others.get("profile_dir")
-        profile_steps = int(others.get("profile_steps", 5))
-        profiler = None
-        profiled = False
-        host_profile = bool(cfg.get("host_profile", False))
-        host_rows: List[Dict[str, float]] = []
-        row_epochs: List[int] = []
-        self.host_profile_rows = host_rows
+        self.host_profile_rows = []
+        d = self._dispatch(cfg, train_loader, val_loader,
+                           run.ckpt is not None, profile_dir)
+        # the profiler window: steps 2..profile_steps + 1 of the step loop
+        window = _ProfilerWindow(profile_dir if self._writes else None,
+                                 int(others.get("profile_steps", 5)),
+                                 self.device)
+        t_start = time.perf_counter()
+        for rec in (self._fused_epochs(run, d) if d.train is not None
+                    else self._loop_epochs(run, window)):
+            if self._finish_epoch(rec, run, d):
+                break
+        window.stop()
+        if run.ckpt is not None:
+            run.ckpt.close()
+            # each epoch's write ended after its row was taken
+            for epoch, row in enumerate(self.host_profile_rows, run.start):
+                row["ckpt.write"] = profiling.RECORDER.row(epoch)["ckpt.write"]
+        if run.best_metrics:
+            tracker.log_best(run.best_metrics, step=run.best_epoch)
+        elapsed = time.perf_counter() - t_start
+        self._load_params(run.best_state)
 
-        # ---- fused epochs (training.epoch_fuse, JAX's policy): fuse when
-        # the train loader is resident and no profiler window is asked for;
-        # val fuses only when train did (or under an explicit true), so a
-        # run stays in one numerics regime ----
+        exp_dict: Dict[str, Any] = {f"{name}_model": bundle
+                                    for name, bundle in models.items()}
+        exp_dict["best_epoch"] = run.best_epoch
+        exp_dict["best_val_loss"] = run.best_val
+        exp_dict["train_seconds"] = elapsed
+        exp_dict["train_loss_dict"] = {
+            k: [h[k] for h in run.history if k in h]
+            for k in (run.history[-1] if run.history else {})
+            if k.endswith("total_loss") or "/" in k}
+        return exp_dict, tracker
+
+    def _loaders(self, datasets: Dict[str, Any], cfg: Dict[str, Any],
+                 seed: int):
+        """The train loader (shuffled) and the val loader (the test split's
+        under ``test_as_val``; None without one), each on the device as
+        ``device_data_cache`` says."""
+        batch_size = int(cfg.get("batch_size", 10))
+        train_ds = datasets["train"]
+        if len(train_ds) == 0:
+            raise ValueError("train dataset is empty — check split patterns "
+                             "against the data's subject ids")
+        val_name = "test" if cfg.get("test_as_val", False) \
+            and "test" in datasets else "val"
+        val_ds = datasets.get(val_name)
+        train_loader = self.scheme.make_loader(train_ds, batch_size,
+                                               shuffle=True, seed=seed)
+        val_loader = self.scheme.make_loader(val_ds, batch_size, shuffle=False) \
+            if val_ds is not None and len(val_ds) > 0 else None
+        train_loader = self._maybe_device_cache(train_loader, cfg, "train")
+        if val_loader is not None:
+            val_loader = self._maybe_device_cache(val_loader, cfg, "val")
+        return train_loader, val_loader
+
+    def _dispatch(self, cfg: Dict[str, Any], train_loader, val_loader,
+                  checkpoints: bool, profile_dir) -> _Dispatch:
+        """What this ``train`` call runs, as JAX's keys and ``auto`` policy
+        say; sets ``last_fuse_engaged``, ``last_fuse_trainval`` and
+        ``last_pipeline_engaged`` and prints the ``epoch loop:`` line.
+
+        Fused epochs (``epoch_fuse``) when the train loader is resident
+        and no profiler window is asked for; val fuses only when train did
+        (or under an explicit true), so a run stays in one numerics
+        regime. Epoch pipelining (``epoch_pipeline``) enqueues epoch k+1
+        before reading epoch k's metrics: the same steps on the same inputs
+        in the same order, epoch k's parameters cloned on the device before
+        epoch k+1 updates them in place. It needs the fused path, no
+        checkpoints (they need epoch k's optimizer state) and, with a val
+        loader, the combined train+val pass."""
+        d = _Dispatch()
         fuse_want, fuse_force = _tristate(cfg, "epoch_fuse", "false")
-        fuse_train = fuse_val = fuse_trainval = None
         no_graph = None
-        if fuse_want and not profile_dir:
+        if fuse_want and profile_dir and fuse_force:
+            warnings.warn("epoch_fuse: disabled while others.profile_dir is "
+                          "set (the profiler window is step-granular)",
+                          RuntimeWarning)
+        elif fuse_want and not profile_dir:
             if getattr(train_loader, "device_resident", False):
                 no_graph = self._uncapturable()
                 if no_graph is None:
-                    fuse_train = self._build_epoch_fns(train_loader)
+                    d.train = self._build_epoch_fns(train_loader)
                 elif fuse_force:
                     raise NotImplementedError(
                         f"training.epoch_fuse=true: {no_graph}")
@@ -643,267 +657,160 @@ class TrainerEngine:
                     "epoch_fuse: requested but the train loader is not "
                     "device-resident (device_data_cache off or not "
                     "cacheable); using the step loop", RuntimeWarning)
-            if (fuse_train is not None or fuse_force) \
-                    and val_loader is not None \
+            if (d.train is not None or fuse_force) \
                     and getattr(val_loader, "device_resident", False):
-                fuse_val = self._build_epoch_fns(val_loader, for_eval=True)
-        if fuse_train is not None and fuse_val is not None:
-            fuse_trainval = self._build_epoch_trainval_fn(train_loader,
-                                                          val_loader)
-        elif fuse_want and profile_dir and fuse_force:
-            warnings.warn("epoch_fuse: disabled while others.profile_dir is "
-                          "set (the profiler window is step-granular)",
-                          RuntimeWarning)
-        self.last_fuse_engaged = (fuse_train is not None,
-                                  fuse_val is not None)
-        self.last_fuse_trainval = fuse_trainval is not None
-
-        # ---- epoch pipelining (training.epoch_pipeline): enqueue epoch k+1
-        # before reading epoch k's metrics. The same steps run on the same
-        # inputs in the same order; epoch k's parameters are cloned on the
-        # device before epoch k+1 updates them in place. Needs the fused
-        # path, no checkpoints (they need epoch k's optimizer state) and,
-        # with a val loader, the combined train+val pass. An early stop at
-        # epoch k discards the one speculative epoch k+1; the best
-        # parameters and metrics are unaffected. ----
+                d.val = self._build_epoch_fns(val_loader, for_eval=True)
+        d.trainval = d.train is not None and d.val is not None
         pipe_want, pipe_force = _tristate(cfg, "epoch_pipeline", "false")
-        pipeline_on = (pipe_want and fuse_train is not None
-                       and ckpt is None
-                       and (val_loader is None or fuse_trainval is not None))
-        if pipe_force and not pipeline_on:
+        d.pipeline = (pipe_want and d.train is not None and not checkpoints
+                      and (val_loader is None or d.trainval))
+        if pipe_force and not d.pipeline:
             warnings.warn(
                 "epoch_pipeline: requested but cannot engage (needs the "
                 "fused-epoch path, save_checkpoint off, and the combined "
                 "train+val dispatch when validating); using the "
                 "synchronous loop", RuntimeWarning)
-        self.last_pipeline_engaged = pipeline_on
-        if fuse_train is not None:
+        self.last_fuse_engaged = (d.train is not None, d.val is not None)
+        self.last_fuse_trainval = d.trainval
+        self.last_pipeline_engaged = d.pipeline
+        if d.train is not None:
             bits = ["fused (" + ("CUDA graphs of the train and eval steps"
                                  if self.device.type == "cuda"
                                  else "the steps eagerly") + ")"]
-            if fuse_trainval is not None:
+            if d.trainval:
                 bits.append("combined train+val")
-            if pipeline_on:
+            if d.pipeline:
                 bits.append("pipelined")
             print(f"epoch loop: {' + '.join(bits)}")
         elif no_graph is not None:
             print(f"epoch loop: step loop ({no_graph})")
+        return d
 
-        history: List[Dict[str, float]] = []
-        prefix = self.metric_prefix
-        global_step = 0
-        pipe_q: List[Dict[str, Any]] = []
-        last_wall_done_t: Optional[float] = None
-        epoch_iter: List[Optional[int]] = list(range(start_epoch, epochs))
-        if pipeline_on:
-            epoch_iter.append(None)    # flush: process the last in flight
-        t_start = time.perf_counter()
-        for epoch in epoch_iter:
-            rec: Optional[Dict[str, Any]] = None
-            if epoch is None:
-                if not pipe_q:
-                    break
-                rec = pipe_q.pop(0)
-            else:
-                t_epoch = time.perf_counter()
-                profiling.set_epoch(epoch)
-                # epoch-indexed shuffle (loader.epoch_permutation)
-                train_loader.set_epoch(epoch)
-                run_val_now = val_loader is not None and (
-                    epoch % valid_period == 0 or epoch == epochs - 1)
-                if fuse_train is not None:
-                    with profiling.span("plan"):
-                        idx_mat, mask_mat = train_loader.epoch_plan()
-                    with profiling.span("dispatch"):
-                        if fuse_trainval is not None and run_val_now:
-                            vidx_mat, vmask_mat = val_loader.epoch_plan()
-                            parts = fuse_trainval(idx_mat, mask_mat,
-                                                  vidx_mat, vmask_mat)
-                        else:
-                            parts = [(fuse_train(idx_mat, mask_mat),
-                                      fuse_train.keys)]
-                        flat, layout = stack_values(parts)
-                    rec = {"epoch": epoch, "t_epoch": t_epoch,
-                           "run_val_now": run_val_now,
-                           "n_batches": int(idx_mat.shape[0]),
-                           "flat": flat, "layout": layout}
-                    global_step += rec["n_batches"]
-                    if pipeline_on:
-                        # epoch k's parameters, before epoch k+1's steps
-                        # update them in place: the best-params copy if
-                        # this epoch turns out best
-                        rec["snap"] = self._snapshot()
-                        pipe_q.append(rec)
-                        if len(pipe_q) < 2:
-                            continue       # fill the pipeline (one in flight)
-                        rec = pipe_q.pop(0)
-            # ---- one epoch's results: the fused record, else the loop ----
-            pending_val = None    # val values from the combined pass
+    def _fused_epochs(self, run: _Run, d: _Dispatch) -> Iterator[_Epoch]:
+        """The fused path's epochs: each epoch's plan and dispatch (the
+        train epoch, and the val epoch after it in the combined pass), its
+        values left on the device. Under pipelining one epoch stays in
+        flight: epoch k is yielded after epoch k+1's dispatch, with its
+        parameters copied before epoch k+1's steps update them, and an
+        early stop at epoch k drops epoch k+1."""
+        in_flight = None
+        for epoch in range(run.start, run.epochs):
+            rec = run.begin(epoch)
+            with profiling.span("plan"):
+                plan = run.train_loader.epoch_plan()
+            with profiling.span("dispatch"):
+                parts = [(d.train(*plan), d.train.keys)]
+                if d.trainval and rec.run_val_now:
+                    vplan = run.val_loader.epoch_plan()
+                    parts.append((d.val(*vplan), d.val.keys))
+                rec.device = stack_values(parts)
+            if d.pipeline:    # hold this epoch, release the one before
+                rec.snap = self._snapshot()
+                rec, in_flight = in_flight, rec
             if rec is not None:
-                proc_epoch = int(rec["epoch"])
-                profiling.set_epoch(proc_epoch)
-                t_epoch = rec["t_epoch"]
-                run_val_now = rec["run_val_now"]
-                with profiling.span("sync"):
-                    synced = read_values(rec["flat"], rec["layout"])
-                train_values = synced[0]
-                if len(synced) > 1:
-                    pending_val = synced[1]
-                if spot_every and not np.isfinite(
-                        train_values["total_loss"][-1]):
-                    raise FloatingPointError(
-                        f"non-finite total_loss at epoch {proc_epoch} "
-                        f"(fused-epoch check)")
-            else:
-                proc_epoch = epoch
-                step_values: List[Dict[str, torch.Tensor]] = []
-                for batch in self._feed(train_loader):
-                    if profile_dir and global_step == 1 and not profiled \
-                            and self._writes:
-                        # the first step (and its set-up) stays out of the
-                        # window
-                        if step_values:
-                            float(step_values[-1]["total_loss"])
-                        profiler = _start_profiler(self.device)
-                        profiled = True
-                    with (torch.profiler.record_function(STEP_SPAN)
-                          if profiler is not None
-                          else contextlib.nullcontext()):
-                        values = self.train_step(self.to_device(batch))
-                    step_values.append(values)
-                    global_step += 1
-                    if spot_every and global_step % spot_every == 0:
-                        fv = float(values["total_loss"])
-                        if not np.isfinite(fv):
-                            raise FloatingPointError(
-                                f"non-finite total_loss {fv} at epoch "
-                                f"{proc_epoch} step {global_step} (spot "
-                                f"check)")
-                        if "max_abs_displacement" in values:
-                            self._check_displacement_band(
-                                float(values["max_abs_displacement"]))
-                    if profiler is not None \
-                            and global_step > profile_steps:
-                        float(values["total_loss"])
-                        _stop_profiler(profiler, profile_dir)
-                        profiler = None
-                        print_trace_summary(profile_dir)
-                train_values = _stack(step_values)
-            epoch_metrics = self._epoch_means(train_values, "train")
+                yield rec
+        if in_flight is not None:
+            yield in_flight
 
-            epoch_total_val = None
-            if run_val_now:
-                with profiling.span("val"):
-                    if pending_val is not None:
-                        val_values = pending_val
-                    elif fuse_val is not None:
-                        vidx_mat, vmask_mat = val_loader.epoch_plan()
-                        val_values = read_values(*stack_values(
-                            [(fuse_val(vidx_mat, vmask_mat),
-                              fuse_val.keys)]))[0]
-                    else:
-                        val_values = _stack(
-                            [self.eval_step(self.to_device(b))[0]
-                             for b in self._feed(val_loader)])
-                    for k, v in val_values.items():
-                        epoch_metrics[f"{prefix}val/{k}"] = float(v.mean())
-                    epoch_total_val = epoch_metrics.get(
-                        f"{prefix}val/total_loss")
-            if log_wall:
-                # under pipelining an epoch's dispatch-to-processed span
-                # overlaps the next one's: log the cadence instead
-                now = time.perf_counter()
-                if pipeline_on and last_wall_done_t is not None:
-                    epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
-                        now - last_wall_done_t
-                else:
-                    epoch_metrics[f"{prefix}time/epoch_wall_s"] = \
-                        now - t_epoch
-                last_wall_done_t = now
-            with profiling.span("track"):
-                tracker.log(epoch_metrics, step=proc_epoch)
-                history.append(dict(epoch_metrics))
-            if vis_every and proc_epoch % vis_every == 0 \
-                    and val_loader is not None:
-                # under pipelining the modules hold the next epoch's
-                # parameters; the figure is of this epoch's
-                self._visualize(val_loader, saving, proc_epoch,
-                                rec.get("snap") if rec is not None else None)
+    def _loop_epochs(self, run: _Run, window: _ProfilerWindow
+                     ) -> Iterator[_Epoch]:
+        """The step loop's epochs: the train step batch by batch, the loss
+        of every ``metric_spot_check_steps``-th step read on the host and
+        checked, the profiler window around the steps it holds; the
+        epoch's values copied to the host at its end."""
+        global_step = 0
+        for epoch in range(run.start, run.epochs):
+            rec = run.begin(epoch)
+            step_values: List[Dict[str, torch.Tensor]] = []
+            for batch in self._feed(run.train_loader):
+                with window.step(global_step, step_values):
+                    values = self.train_step(self.to_device(batch))
+                step_values.append(values)
+                global_step += 1
+                if run.spot_every and global_step % run.spot_every == 0:
+                    fv = float(values["total_loss"])
+                    if not np.isfinite(fv):
+                        raise FloatingPointError(
+                            f"non-finite total_loss {fv} at epoch {epoch} "
+                            f"step {global_step} (spot check)")
+                    if "max_abs_displacement" in values:
+                        self._check_displacement_band(
+                            float(values["max_abs_displacement"]))
+                window.after(global_step, values)
+            rec.host = _stack(step_values)
+            yield rec
 
-            # early stopping on total val loss, or on early_stop_metric
-            if early_stop_metric is not None:
-                key = early_stop_metric if early_stop_metric.startswith(prefix) \
-                    else f"{prefix}{early_stop_metric}"
-                monitor = epoch_metrics.get(key)
-            elif val_loader is not None:
-                monitor = epoch_total_val   # None on valid_period-skipped epochs
-            else:
-                monitor = epoch_metrics.get(f"{prefix}train/total_loss",
-                                            float("inf"))
-            stop = False
-            with profiling.span("beststop"):
-                if monitor is not None:
-                    if monitor < best_val:
-                        best_val = monitor
-                        best_state = rec["snap"] if rec is not None \
-                            and "snap" in rec else self._snapshot()
-                        best_epoch = proc_epoch
-                        best_epoch_metrics = dict(epoch_metrics)
-                        epochs_without_improvement = 0
-                    else:
-                        epochs_without_improvement += 1
-                        stop = epochs_without_improvement > tolerance
-            # after the early-stop update, so the saved counters hold this
-            # epoch's decision
-            with profiling.span("ckpt"):
-                if ckpt is not None and self._writes:
-                    ckpt.save(
-                        proc_epoch, self._snapshot(),
-                        self._optimizer_states(), best_params=best_state,
-                        extra={"epoch": proc_epoch,
-                               "best_val": float(best_val),
-                               "best_epoch": best_epoch,
-                               "epochs_without_improvement":
-                                   epochs_without_improvement,
-                               **self._rng_states()},
-                        texts={best_metrics_path.name:
-                               json.dumps(best_epoch_metrics)})
-                if ckpt is not None:
-                    barrier(self.mesh)
-            if host_profile:
-                # `total` spans dispatch to processed; under pipelining
-                # consecutive totals overlap, and the cadence is the
-                # difference of consecutive `t_done` stamps
-                profiling.note("total", t_epoch, time.perf_counter())
-                host_rows.append(profiling.RECORDER.row(proc_epoch))
-                row_epochs.append(proc_epoch)
-            if stop:
-                break
+    def _finish_epoch(self, rec: _Epoch, run: _Run, d: _Dispatch) -> bool:
+        """One epoch's results, in the JAX engine's order: its values read
+        (``sync``, the fused path's; its non-finite check), its metrics,
+        validation, the wall time, the tracker, the figure, the early-stop
+        update, the checkpoint and the host-phase row. Returns whether the
+        run stops early."""
+        profiling.set_epoch(rec.epoch)
+        train_values, val_values = rec.host, None
+        if rec.device is not None:
+            with profiling.span("sync"):
+                train_values, *rest = read_values(*rec.device)
+            val_values = rest[0] if rest else None
+            if run.spot_every and not np.isfinite(
+                    train_values["total_loss"][-1]):
+                raise FloatingPointError(
+                    f"non-finite total_loss at epoch {rec.epoch} "
+                    f"(fused-epoch check)")
+        metrics = self._epoch_means(train_values, "train")
+        if rec.run_val_now:
+            with profiling.span("val"):
+                for k, v in self._val_values(val_values, run, d).items():
+                    metrics[f"{self.metric_prefix}val/{k}"] = float(v.mean())
+        if run.log_wall:
+            # under pipelining an epoch's dispatch-to-processed span
+            # overlaps the next one's: log the cadence instead
+            now = time.perf_counter()
+            since = run.wall_done if d.pipeline \
+                and run.wall_done is not None else rec.t_epoch
+            metrics[f"{self.metric_prefix}time/epoch_wall_s"] = now - since
+            run.wall_done = now
+        with profiling.span("track"):
+            run.tracker.log(metrics, step=rec.epoch)
+            run.history.append(dict(metrics))
+        if run.vis_every and rec.epoch % run.vis_every == 0 \
+                and run.val_loader is not None:
+            # under pipelining the modules hold the next epoch's
+            # parameters; the figure is of this epoch's
+            self._visualize(run.val_loader, run.saving, rec.epoch, rec.snap)
+        monitor = metrics.get(*run.monitor)
+        with profiling.span("beststop"):
+            stop = run.update(
+                monitor, rec.epoch, metrics,
+                lambda: self._snapshot() if rec.snap is None else rec.snap)
+        # after the early-stop update, so the saved counters hold this
+        # epoch's decision
+        with profiling.span("ckpt"):
+            if run.ckpt is not None:
+                if self._writes:
+                    run.save(rec.epoch, self._snapshot(),
+                             self._optimizer_states())
+                barrier(self.mesh)
+        if run.host_profile:
+            # `total` spans dispatch to processed; under pipelining
+            # consecutive totals overlap, and the cadence is the
+            # difference of consecutive `t_done` stamps
+            profiling.note("total", rec.t_epoch, time.perf_counter())
+            self.host_profile_rows.append(profiling.RECORDER.row(rec.epoch))
+        return stop
 
-        if profiler is not None:
-            _stop_profiler(profiler, profile_dir)
-        if ckpt is not None:
-            ckpt.close()
-            # each epoch's write ended after its row was taken
-            for row, row_epoch in zip(host_rows, row_epochs):
-                row["ckpt.write"] = \
-                    profiling.RECORDER.row(row_epoch)["ckpt.write"]
-        if best_epoch_metrics:
-            tracker.log_best(best_epoch_metrics, step=best_epoch)
-        elapsed = time.perf_counter() - t_start
-        for name, module in self.modules.items():
-            module.load_state_dict(best_state[name])
-
-        exp_dict: Dict[str, Any] = {f"{name}_model": bundle
-                                    for name, bundle in models.items()}
-        exp_dict["best_epoch"] = best_epoch
-        exp_dict["best_val_loss"] = best_val
-        exp_dict["train_seconds"] = elapsed
-        exp_dict["train_loss_dict"] = {
-            k: [h[k] for h in history if k in h]
-            for k in (history[-1] if history else {})
-            if k.endswith("total_loss") or "/" in k}
-        return exp_dict, tracker
+    def _val_values(self, combined: Optional[Dict[str, np.ndarray]],
+                    run: _Run, d: _Dispatch) -> Dict[str, np.ndarray]:
+        """The epoch's val values: the combined pass's (``combined``), else
+        the fused val epoch's, else the eval step's batch by batch."""
+        if combined is not None:
+            return combined
+        if d.val is not None:
+            vplan = run.val_loader.epoch_plan()
+            return read_values(*stack_values([(d.val(*vplan),
+                                               d.val.keys)]))[0]
+        return _stack([self.eval_step(self.to_device(b))[0]
+                       for b in self._feed(run.val_loader)])
 
     def _feed(self, loader):
         """The step loop's batches: a host loader's cross to the card a
@@ -940,25 +847,13 @@ class TrainerEngine:
                        "schedule": schedule.state_dict()}
                 for name, (opt, schedule) in self.optimizers.items()}
 
-    def _rng_states(self) -> Dict[str, torch.Tensor]:
-        """The generators the loop could read: torch's CPU generator and,
-        on the card, CUDA's."""
-        out = {"rng_cpu": torch.get_rng_state()}
-        if self.device.type == "cuda":
-            out["rng_cuda"] = torch.cuda.get_rng_state(self.device)
-        return out
-
     def _load_training_state(self, state: Dict[str, Any]) -> None:
-        """Parameters, optimizers, schedules and RNGs from a checkpoint."""
-        for name, module in self.modules.items():
-            module.load_state_dict(state["params"][name])
+        """Parameters, optimizers and schedules from a checkpoint (the
+        RNGs and the run's state: ``_Run.resume``)."""
+        self._load_params(state["params"])
         for name, (opt, schedule) in self.optimizers.items():
             load_optimizer_state(opt, state["opt_states"][name]["optimizer"])
             schedule.load_state_dict(state["opt_states"][name]["schedule"])
-        extra = state["extra"]
-        torch.set_rng_state(extra["rng_cpu"])
-        if self.device.type == "cuda" and "rng_cuda" in extra:
-            torch.cuda.set_rng_state(extra["rng_cuda"], self.device)
 
     def _visualize(self, val_loader, saving: Dict[str, Any], epoch: int,
                    params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
@@ -1061,19 +956,6 @@ class TrainerEngine:
                                 for k, v in pred.items()}
             return values, {k: v.clone() for k, v in pred.items()}
 
-        def consume(batch, pred):
-            pred_np = {k: v.float().cpu().numpy() for k, v in pred.items()}
-            mask = np.asarray(batch["sample_mask"])
-            for i in range(mask.shape[0]):
-                if mask[i] == 0:
-                    continue
-                sample = {k: v[i] for k, v in batch.items()
-                          if k != "sample_mask"}
-                for k, v in pred_np.items():
-                    if v.ndim >= 1 and v.shape[0] == mask.shape[0]:
-                        sample[f"{k}_pred"] = v[i]
-                preds.append(sample)
-
         pipeline = bool(cfg.get("eval_pipeline", True))
         pending = None
         with profiling.recording(bool(cfg.get("host_profile", False))):
@@ -1082,12 +964,12 @@ class TrainerEngine:
                 step_values.append(values)
                 if pipeline:
                     if pending is not None:
-                        consume(*pending)
+                        preds.extend(_per_sample(*pending))
                     pending = (batch, pred)
                 else:
-                    consume(batch, pred)
+                    preds.extend(_per_sample(batch, pred))
         if pending is not None:
-            consume(*pending)
+            preds.extend(_per_sample(*pending))
         perf = self.scheme.performance(preds, target_dataset)
         for k, v in _stack(step_values).items():
             perf[f"final-{target_dataset}/loss_{k}"] = float(v.mean())
@@ -1104,27 +986,204 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
-def _start_profiler(device: torch.device):
-    """A ``torch.profiler`` window, started (the card's activity too)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
+def _per_sample(batch: Dict[str, Any], pred: Dict[str, torch.Tensor]
+                ) -> List[Dict[str, Any]]:
+    """One batch's samples with their predictions (``<key>_pred``), the
+    padding rows dropped."""
+    pred_np = {k: v.float().cpu().numpy() for k, v in pred.items()}
+    mask = np.asarray(batch["sample_mask"])
+    samples = []
+    for i in np.flatnonzero(mask != 0):
+        sample = {k: v[i] for k, v in batch.items() if k != "sample_mask"}
+        for k, v in pred_np.items():
+            if v.ndim >= 1 and v.shape[0] == mask.shape[0]:
+                sample[f"{k}_pred"] = v[i]
+        samples.append(sample)
+    return samples
 
 
-def _stop_profiler(prof, profile_dir) -> None:
-    """Stop the window and write its Chrome trace into ``profile_dir``."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    prof.stop()
-    out = Path(profile_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(
-        str(out / f"{time.strftime('%Y%m%d_%H%M%S')}.pt.trace.json"))
+@dataclass
+class _Dispatch:
+    """What one ``train`` call runs (``TrainerEngine._dispatch``): the
+    fused train and val epochs (None: the step loop, the eval steps), the
+    combined train+val pass and epoch pipelining."""
+    train: Optional[EpochRunner] = None
+    val: Optional[EpochRunner] = None
+    trainval: bool = False
+    pipeline: bool = False
+
+
+@dataclass
+class _Epoch:
+    """One epoch as ``TrainerEngine._fused_epochs`` and ``_loop_epochs``
+    yield it: its values on the device (``stack_values``' vector and
+    layout: the train epoch's, then the combined pass's val epoch's) or on
+    the host (the step loop's), and under pipelining ``snap``, its
+    parameters (a ``_snapshot``)."""
+    epoch: int
+    t_epoch: float
+    run_val_now: bool
+    device: Optional[Tuple[torch.Tensor, list]] = None
+    host: Optional[Dict[str, np.ndarray]] = None
+    snap: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+
+
+class _Run:
+    """One ``train`` call's run: its settings (the training keys,
+    ``others`` and ``saving``), loaders, tracker and checkpoints
+    (``ckpt``, None without them; ``start``, the first epoch), what it
+    gathers (the metrics' ``history``; ``wall_done``, the last epoch's
+    end, for ``log_epoch_walltime``), and its best parameters, epoch,
+    early-stop value and metrics and its epochs without improvement, with
+    the checkpoint's part that holds them: ``extra`` (with the generators'
+    states) and ``best_metrics.json``."""
+
+    BEST_METRICS = "best_metrics.json"
+
+    def __init__(self, cfg: Dict[str, Any], full: Dict[str, Any],
+                 prefix: str, train_loader, val_loader,
+                 tracker: MetricsTracker,
+                 best_state: Dict[str, Dict[str, torch.Tensor]],
+                 device: torch.device):
+        self.train_loader, self.val_loader = train_loader, val_loader
+        self.tracker, self.device = tracker, device
+        self.ckpt: Optional[CheckpointManager] = None
+        self.start = 0
+        self.history: List[Dict[str, float]] = []
+        self.wall_done: Optional[float] = None
+        others = full.get("others", {}) or {}
+        self.saving = full.get("saving", {}) or {}
+        self.epochs = int(cfg.get("epochs", 1))
+        self.valid_period = max(1, int(others.get("valid_period", 1)))
+        self.spot_every = int(cfg.get("metric_spot_check_steps", 50))
+        self.log_wall = bool(cfg.get("log_epoch_walltime", False))
+        self.host_profile = bool(cfg.get("host_profile", False))
+        # periodic figures every max(1, int(interval * epochs)) epochs
+        vis = others.get("wandb_visualize_interval", 0)
+        self.vis_every = max(1, int(float(vis) * self.epochs)) \
+            if vis and self.saving.get("saving_dir") else 0
+        # early stopping on early_stop_metric, else on the total val loss
+        # (None on valid_period-skipped epochs), else on the train one:
+        # (key, value where the epoch has none)
+        name = cfg.get("early_stop_metric")
+        if name is not None:
+            self.monitor = (name if name.startswith(prefix)
+                            else f"{prefix}{name}", None)
+        elif val_loader is not None:
+            self.monitor = (f"{prefix}val/total_loss", None)
+        else:
+            self.monitor = (f"{prefix}train/total_loss", float("inf"))
+        self.tolerance = int(cfg.get("epochs_without_improvement_tolerance",
+                                     50))
+        self.best_val = float("inf")
+        self.best_state = best_state
+        self.best_epoch = -1
+        self.best_metrics: Dict[str, float] = {}
+        self.without_improvement = 0
+
+    def begin(self, epoch: int) -> _Epoch:
+        """Epoch ``epoch``'s start: the recorder's epoch, the loader's
+        epoch-indexed shuffle, whether it validates."""
+        t_epoch = time.perf_counter()
+        profiling.set_epoch(epoch)
+        self.train_loader.set_epoch(epoch)
+        return _Epoch(epoch, t_epoch, self.val_loader is not None and (
+            epoch % self.valid_period == 0 or epoch == self.epochs - 1))
+
+    def update(self, monitor: Optional[float], epoch: int,
+               metrics: Dict[str, float],
+               snapshot: Callable[[], Dict[str, Dict[str, torch.Tensor]]]
+               ) -> bool:
+        """Epoch ``epoch``'s early-stop value (None: nothing to decide),
+        ``snapshot()`` its parameters; whether to stop."""
+        if monitor is None:
+            return False
+        if monitor < self.best_val:
+            self.best_val, self.best_epoch = monitor, epoch
+            self.best_state, self.best_metrics = snapshot(), dict(metrics)
+            self.without_improvement = 0
+            return False
+        self.without_improvement += 1
+        return self.without_improvement > self.tolerance
+
+    def save(self, epoch: int, params, opt_states) -> None:
+        """Epoch ``epoch``'s checkpoint: the training state and the run's."""
+        extra = {"epoch": epoch, "best_val": float(self.best_val),
+                 "best_epoch": self.best_epoch,
+                 "epochs_without_improvement": self.without_improvement,
+                 "rng_cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            extra["rng_cuda"] = torch.cuda.get_rng_state(self.device)
+        texts = {self.BEST_METRICS: json.dumps(self.best_metrics)}
+        self.ckpt.save(epoch, params, opt_states,
+                       best_params=self.best_state, extra=extra, texts=texts)
+
+    def resume(self, params, load: Callable[[Dict[str, Any]], None]) -> None:
+        """The latest checkpoint restored (``params``, a ``_snapshot``, the
+        template of its parameters), its training state handed to ``load``,
+        the run's and the generators' states read from it."""
+        state = self.ckpt.restore(template={"params": params,
+                                            "best_params": self.best_state})
+        load(state)
+        extra = state["extra"]
+        torch.set_rng_state(extra["rng_cpu"])
+        if self.device.type == "cuda" and "rng_cuda" in extra:
+            torch.cuda.set_rng_state(extra["rng_cuda"], self.device)
+        self.best_state = state["best_params"]
+        self.best_val = float(extra["best_val"])
+        self.best_epoch = int(extra["best_epoch"])
+        self.without_improvement = int(extra["epochs_without_improvement"])
+        path = self.ckpt.directory / self.BEST_METRICS
+        if path.exists():
+            self.best_metrics = json.loads(path.read_text())
+        self.start = int(extra["epoch"]) + 1
+
+
+class _ProfilerWindow:
+    """``others.profile_dir``'s window (no window where ``profile_dir`` is
+    None): ``torch.profiler``, the card's activity too, over steps
+    2..``steps`` + 1 of the step loop, its Chrome trace written into
+    ``profile_dir``."""
+
+    def __init__(self, profile_dir, steps: int, device: torch.device):
+        self.dir, self.steps, self.device = profile_dir, steps, device
+        self.prof = None
+
+    def step(self, global_step: int, step_values: List[Dict[str, Any]]):
+        """The context of the step after ``global_step`` steps; the first
+        step (and its set-up) stays out of the window."""
+        if self.dir and global_step == 1:
+            if step_values:
+                float(step_values[-1]["total_loss"])
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+        return torch.profiler.record_function(STEP_SPAN) \
+            if self.prof is not None else contextlib.nullcontext()
+
+    def after(self, global_step: int, values: Dict[str, Any]) -> None:
+        """After step ``global_step``: the window closes past ``steps``."""
+        if self.prof is not None and global_step > self.steps:
+            float(values["total_loss"])
+            self.stop()
+            print_trace_summary(self.dir)
+
+    def stop(self) -> None:
+        """Stop the window, if open, and write its trace."""
+        if self.prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.prof.stop()
+        out = Path(self.dir)
+        out.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(
+            str(out / f"{time.strftime('%Y%m%d_%H%M%S')}.pt.trace.json"))
+        self.prof = None
 
 
 def _stack(step_values: List[Dict[str, torch.Tensor]]

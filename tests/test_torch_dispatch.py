@@ -616,3 +616,81 @@ def test_safe_orth_cholesky_ex_equals_cholesky():
                                           upper=False)
     assert torch.equal(svd_smooth._safe_orth(y),
                        y @ inv_l.transpose(-1, -2))
+
+
+# --------------------------------------------------------------------------- #
+# Training keys the epoch's finishing reads                                     #
+# --------------------------------------------------------------------------- #
+
+# the LMA config's step loop, fused epochs, and fused epochs pipelined
+PATHS = {
+    "loop": {"device_data_cache": False, "epoch_fuse": False},
+    "fused": {"epoch_pipeline": False},
+    "pipelined": {},
+}
+
+
+def _lma_run(path, splits=None, **training):
+    """(exp_dict, engine) of the port's LMA run on ``path``'s dispatch."""
+    cfg = _lma_cfg(**PATHS[path], **training)
+    exp, eng = _port_run(cfg, datasets=build_datasets(
+        _lma_ds_cfg(), splits or _splits()))
+    assert eng.last_fuse_engaged == ((False, False) if path == "loop"
+                                     else (True, True))
+    assert eng.last_pipeline_engaged is (path == "pipelined")
+    return exp, eng
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_log_epoch_walltime_logs_every_epoch(path):
+    """``training.log_epoch_walltime``: ``time/epoch_wall_s`` in every
+    epoch's metrics (under pipelining the cadence), and nowhere without
+    the key."""
+    exp, _ = _lma_run(path, epochs=3, log_epoch_walltime=True)
+    walls = exp["train_loss_dict"]["time/epoch_wall_s"]
+    assert len(walls) == 3 and all(w > 0 for w in walls)
+    exp, _ = _lma_run(path, epochs=3)
+    assert "time/epoch_wall_s" not in exp["train_loss_dict"]
+
+
+@pytest.mark.parametrize("path", ["fused", "loop"])
+def test_test_as_val_validates_on_the_test_split(path):
+    """``training.test_as_val``: the val metrics are those of a run whose
+    val split is the test split, not those of the val split."""
+    data = _slice_data()
+    splits = {"train": {"data": data}, "val": {"data": data[:2]},
+              "test": {"data": data[2:]}}
+    ds_cfg = dict(_lma_ds_cfg(), test={"type": "LMADataset",
+                                       "data_split": ["test"],
+                                       "n_frames_to_use_for_regression": 8})
+    runs = []
+    for test_as_val, val in ((True, "val"), (False, "test"), (False, "val")):
+        cfg = _lma_cfg(**PATHS[path], test_as_val=test_as_val)
+        datasets = build_datasets(ds_cfg, splits)
+        datasets["val"] = datasets[val]
+        runs.append(_port_run(cfg, datasets=datasets)[0]["train_loss_dict"])
+    as_val, on_test, on_val = runs
+    assert as_val["val/total_loss"] == on_test["val/total_loss"]
+    assert as_val["val/total_loss"] != on_val["val/total_loss"]
+
+
+@pytest.mark.parametrize("spot, path", [(3, "loop"), (3, "fused"),
+                                        (3, "pipelined"), (0, "loop"),
+                                        (0, "pipelined")])
+def test_metric_spot_check_raises_on_a_non_finite_loss(spot, path):
+    """``training.metric_spot_check_steps``: a NaN target makes every loss
+    from the first step on non-finite. The step loop raises at the first
+    step the key divides (epoch 1's first step: two steps an epoch), the
+    fused path at the end of epoch 0; at 0 neither raises."""
+    data = copy.deepcopy(_slice_data())
+    for d in data:
+        d["TOS"] = np.full_like(d["TOS"], np.nan)
+    splits = {"train": {"data": data}, "val": {"data": _slice_data()[:2]}}
+    if not spot:
+        exp, _ = _lma_run(path, splits, epochs=2, metric_spot_check_steps=0)
+        assert np.isnan(exp["train_loss_dict"]["train/total_loss"]).all()
+        return
+    want = "epoch 1 step 3 \\(spot check\\)" if path == "loop" \
+        else "epoch 0 \\(fused-epoch check\\)"
+    with pytest.raises(FloatingPointError, match=want):
+        _lma_run(path, splits, epochs=2, metric_spot_check_steps=spot)

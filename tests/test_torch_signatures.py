@@ -236,8 +236,7 @@ PAIRS = {
                   "print_trace_summary")},
     **{f"TrainerEngine.{m}": (getattr(tengine.TrainerEngine, m),
                               getattr(jengine.TrainerEngine, m))
-       for m in ("_maybe_device_cache", "_build_epoch_fns",
-                 "_build_epoch_trainval_fn")},
+       for m in ("_maybe_device_cache", "_build_epoch_fns")},
     "NetStrainMat2LMA.__init__": (NetStrainMat2LMA.__init__,
                                   JaxNetStrainMat2LMA.__init__),
     "NetStrainMat2LMA.forward": (NetStrainMat2LMA.forward,
@@ -399,12 +398,11 @@ BY_DESIGN = {
         set(), set(),
         "devices holds one device a rank, in rank order (JAX's is a list "
         "of one process's devices)"),
-    **{f"TrainerEngine.{m}": (
+    "TrainerEngine._build_epoch_fns": (
         {"unroll_cap"}, set(),
         "training.epoch_fuse_max_steps caps how far JAX unrolls its scan "
         "of the step; the port replays one captured step a batch, so the "
-        "key has no effect")
-       for m in ("_build_epoch_fns", "_build_epoch_trainval_fn")},
+        "key has no effect"),
     **{f"{cls}.example_model_args": (
         {"params"}, set(), "torch modules hold their parameters")
        for cls in SCHEMES},
